@@ -1,0 +1,94 @@
+"""Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+
+Each source under ``kernels/csrc/`` compiles, on first use, into a shared
+library with a plain C interface under ``<repo>/build/kernels/``.  The file
+name carries a hash of the source and flags, so an edited source is rebuilt
+and an unchanged one is loaded as it is.  Nothing here runs at import time:
+the CPU tests import every module, and this machine need have no ``nvcc``.
+
+    >>> from repro_torch.kernels import build
+    >>> lib = build.load("packed_flash_attention")      # doctest: +SKIP
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+# C signatures of each library's functions: name -> argtypes (restype int).
+SIGNATURES = {
+    "packed_flash_attention": {
+        "pfa_fwd": [P] * 7 + [I] * 9 + [P],
+        "pfa_bwd_dq": [P] * 9 + [I] * 9 + [P],
+        "pfa_bwd_dkv": [P] * 10 + [I] * 9 + [P],
+    },
+}
+
+
+class BuildLog:
+    """What the builds of this process did: seconds and ``-Xptxas -v`` lines."""
+
+    def __init__(self):
+        self.seconds: dict[str, float] = {}
+        self.ptxas: dict[str, list[str]] = {}
+
+
+LOG = BuildLog()
+_LOADED: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                           "machine with the CUDA toolkit")
+    return path
+
+
+def _target(name: str) -> tuple[Path, list[str]]:
+    src = CSRC / f"{name}.cu"
+    cmd_tail = ARCH_FLAGS + FLAGS
+    digest = hashlib.sha256(src.read_bytes() + " ".join(cmd_tail).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so", cmd_tail
+
+
+def _compile(name: str, out: Path, tail: list[str]) -> None:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run([nvcc(), *tail, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    LOG.seconds[name] = time.perf_counter() - t0
+    LOG.ptxas[name] = [ln for ln in proc.stdout.splitlines()
+                       if "registers" in ln or "smem" in ln or "spill" in ln
+                       or "Compiling entry" in ln]
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
+    os.replace(tmp, out)
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    if name in _LOADED:
+        return _LOADED[name]
+    out, tail = _target(name)
+    if not out.exists():
+        _compile(name, out, tail)
+    lib = ctypes.CDLL(str(out))
+    for fn, argtypes in SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+    _LOADED[name] = lib
+    return lib

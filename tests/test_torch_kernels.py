@@ -1,0 +1,176 @@
+"""Port's packed flash attention (K1–K3) against the reference.
+
+On the CPU the port's wrappers run the kernels' plain versions; the
+reference runs its Pallas kernels in interpret mode.  Same numpy inputs go
+through both.  Tolerances (fp32): forward atol = rtol = 1e-5, gradients
+2e-3 (the reference suite's own bound for gradients through Pallas).
+
+The CUDA kernels themselves are held against the plain versions in
+``test_torch_cuda.py`` (on a card) and by ``chip_smoke.py``.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import packed_flash_attention as jpfa
+from repro_torch.kernels import blocking
+from repro_torch.kernels import ops
+from repro_torch.kernels import packed_flash_attention as pfa
+
+# tiny shapes: one thread each keeps xdist workers from oversubscribing
+# the cores that wall-clock-sensitive tests in other workers share
+torch.set_num_threads(1)
+
+FWD_TOL = 1e-5
+GRAD_TOL = 2e-3
+
+
+def _qkv(seed, B, S, H, KH, D):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, S, H, D)).astype(np.float32),
+            rng.standard_normal((B, S, KH, D)).astype(np.float32),
+            rng.standard_normal((B, S, KH, D)).astype(np.float32))
+
+
+def _segments(seed, B, S, n_seg):
+    """Contiguous segments 1..n_seg, then a 0 (padding) tail."""
+    rng = np.random.default_rng(seed)
+    seg = np.zeros((B, S), np.int32)
+    for b in range(B):
+        cur = 0
+        for i in range(n_seg):
+            L = int(rng.integers(1, max(2, S // n_seg + 1)))
+            seg[b, cur:cur + L] = i + 1
+            cur += L
+            if cur >= S:
+                break
+    return seg
+
+
+def _jax_fwd_grad(fn, args):
+    """Output and the grads of sum(sin(y)) w.r.t. every arg."""
+    y, vjp = jax.vjp(fn, *(jnp.asarray(a) for a in args))
+    return np.asarray(y), [np.asarray(g) for g in vjp(jnp.cos(y))]
+
+
+def _torch_fwd_grad(fn, args):
+    ts = [torch.tensor(a, requires_grad=True) for a in args]
+    y = fn(*ts)
+    grads = torch.autograd.grad(torch.sin(y).sum(), ts)
+    return y.detach().numpy(), [g.numpy() for g in grads]
+
+
+CASES = [
+    # (B, S, H, KH, D, causal, window, n_seg)
+    (1, 64, 4, 2, 32, True, 0, 2),       # GQA
+    (2, 64, 4, 1, 32, True, 0, 3),       # MQA, packed segments
+    (2, 64, 2, 2, 32, False, 0, 2),      # bidirectional (encoder)
+    (1, 96, 2, 1, 32, True, 48, 2),      # window spans 32-blocks
+    (1, 127, 2, 2, 32, True, 0, 2),      # prime length (pad path)
+]
+
+
+@pytest.mark.parametrize("B,S,H,KH,D,causal,window,n_seg", CASES)
+def test_plain_matches_pallas_fwd_and_grads(B, S, H, KH, D, causal, window,
+                                            n_seg):
+    q, k, v = _qkv(11, B, S, H, KH, D)
+    seg = _segments(13, B, S, n_seg)
+    y_ref, g_ref = _jax_fwd_grad(
+        lambda q, k, v: jops.packed_flash_attention(
+            q, k, v, segment_ids=jnp.asarray(seg), causal=causal,
+            window=window, block_q=32, block_k=32), (q, k, v))
+    y, g = _torch_fwd_grad(
+        lambda q, k, v: ops.packed_flash_attention(
+            q, k, v, segment_ids=torch.tensor(seg), causal=causal,
+            window=window, block_q=32, block_k=32), (q, k, v))
+    np.testing.assert_allclose(y, y_ref, rtol=FWD_TOL, atol=FWD_TOL)
+    for a, b, name in zip(g, g_ref, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(a, b, rtol=GRAD_TOL, atol=GRAD_TOL,
+                                   err_msg=name)
+
+
+def test_fully_masked_query_tile():
+    """A query tile whose segment matches no key: exact-zero output and dq,
+    finite grads, agreement with the reference kernel."""
+    B, KH, G, S, D = 1, 2, 1, 64, 32
+    rng = np.random.default_rng(9)
+    q = rng.standard_normal((B, KH, G, S, D)).astype(np.float32)
+    k = rng.standard_normal((B, KH, S, D)).astype(np.float32)
+    v = rng.standard_normal((B, KH, S, D)).astype(np.float32)
+    seg_q = np.r_[np.full(32, 7), np.ones(32)].astype(np.int32)[None]
+    seg_k = np.ones((B, S), np.int32)
+    y_ref, g_ref = _jax_fwd_grad(
+        lambda q, k, v: jpfa.packed_flash_attention_bkgsd(
+            q, k, v, jnp.asarray(seg_q), jnp.asarray(seg_k), causal=True,
+            window=0, block_q=32, block_k=32, interpret=True), (q, k, v))
+    y, g = _torch_fwd_grad(
+        lambda q, k, v: pfa.packed_flash_attention_bkgsd(
+            q, k, v, torch.tensor(seg_q), torch.tensor(seg_k), causal=True,
+            window=0, block_q=32, block_k=32), (q, k, v))
+    np.testing.assert_array_equal(y[:, :, :, :32], 0.0)
+    np.testing.assert_array_equal(g[0][:, :, :, :32], 0.0)
+    np.testing.assert_allclose(y, y_ref, rtol=FWD_TOL, atol=FWD_TOL)
+    for a, b in zip(g, g_ref):
+        assert np.all(np.isfinite(a))
+        np.testing.assert_allclose(a, b, rtol=GRAD_TOL, atol=GRAD_TOL)
+
+
+def test_lse_sentinel_on_fully_masked_rows():
+    B, KH, G, S, D = 1, 1, 2, 16, 8
+    q = torch.randn(B, KH, G, S, D)
+    k = torch.randn(B, KH, S, D)
+    seg_q = torch.tensor([[5] * 4 + [1] * 12], dtype=torch.int32)
+    seg_k = torch.ones((B, S), dtype=torch.int32)
+    o, lse = pfa.flash_fwd(q, k, k, seg_q, seg_k, True, 0, 8, 8)
+    assert torch.all(lse[..., :4] == pfa.NEG_INF)
+    assert torch.all(o[..., :4, :] == 0)
+    assert torch.all(torch.isfinite(lse[..., 4:]))
+
+
+@pytest.mark.parametrize("blocks", [(16, 16), (64, 32)])
+def test_outputs_do_not_depend_on_block(blocks):
+    q, k, v = _qkv(3, 2, 80, 4, 2, 16)
+    seg = _segments(4, 2, 80, 3)
+    args = (q, k, v)
+
+    def run(bq, bk):
+        return _torch_fwd_grad(
+            lambda q, k, v: ops.packed_flash_attention(
+                q, k, v, segment_ids=torch.tensor(seg), causal=True,
+                block_q=bq, block_k=bk), args)
+
+    y0, g0 = run(512, 512)
+    y1, g1 = run(*blocks)
+    np.testing.assert_allclose(y1, y0, rtol=FWD_TOL, atol=FWD_TOL)
+    for a, b in zip(g1, g0):
+        np.testing.assert_allclose(a, b, rtol=FWD_TOL, atol=FWD_TOL)
+
+
+def test_gqa_kv_head_mapping():
+    """Query head h reads kv head h // G."""
+    B, S, KH, G, D = 1, 32, 2, 2, 16
+    q = torch.zeros(B, S, KH * G, D)
+    k = torch.zeros(B, S, KH, D)
+    v = torch.arange(1, KH + 1, dtype=torch.float32)[None, None, :, None].expand(
+        B, S, KH, D)
+    out = ops.packed_flash_attention(q, k, v, block_q=16, block_k=16)
+    want = torch.arange(1, KH + 1, dtype=torch.float32).repeat_interleave(G)
+    torch.testing.assert_close(out, want[None, None, :, None].expand_as(out))
+
+
+@pytest.mark.parametrize("s", [1, 63, 64, 96, 127, 257, 509])
+def test_pick_block_prime_lengths_no_extra_grid_steps(s):
+    for tgt in (32, 64, 128, 512):
+        b, padded = blocking.pick_block(s, tgt)
+        assert 1 <= b <= max(1, tgt) and padded >= s and padded % b == 0
+        assert padded // b == -(-s // b)
+
+
+def test_pad_axis_matches_reference_values():
+    x = torch.arange(6, dtype=torch.int32).reshape(1, 6)
+    y = blocking.pad_axis(x, 8, axis=1, value=blocking.PAD_SEGMENT)
+    assert y.tolist() == [[0, 1, 2, 3, 4, 5, -1, -1]]
+    assert blocking.pad_axis(x, 6, axis=1) is x
