@@ -5,23 +5,34 @@
 
 Phases, each reported on its own lines:
   1. device   — card name and power limit (``nvidia-smi``); fails without CUDA;
-  2. build    — compiles the CUDA kernels from ``src/repro_torch/kernels/csrc``
-                with ``nvcc`` and prints the ``-Xptxas -v`` register /
-                shared-memory lines;
-  3. compare  — K1 forward and K2/K3 gradients (through the autograd
-                Function) against the plain PyTorch versions on the card, at
-                the main path's two attention shapes (bf16) and at small fp32
-                cases (prime length, window, G = 4, rows masked everywhere);
-  4. timing   — K1, K2, K3 at the path shapes with CUDA events, beside the
-                plain versions, SDPA as a yardstick, and the card's bound;
+  2. build    — compiles the three CUDA libraries from
+                ``src/repro_torch/kernels/csrc`` side by side (one ``nvcc`` each)
+                and prints the ``-Xptxas -v`` register / shared-memory lines;
+  3. compare  — each kernel against its plain PyTorch version on the card:
+                K1 forward and K2/K3 gradients at the three attention shapes of
+                the paths (bf16) and at small fp32 cases (prime length, window,
+                G = 4, rows masked everywhere); K4–K7 outputs and gradients
+                (through their autograd Functions) at RWKV6-7B's and Jamba's
+                scan shapes (bf16) and at small fp32 cases (prime lengths,
+                several chunks, B > 1, a nonzero final-state cotangent for K7);
+  4. timing   — every kernel at its path shapes with CUDA events, beside its
+                plain version, the card's bound and the PyTorch yardstick
+                where one exists (SDPA for K1–K3; none computes a scan);
   5. train    — 3 AdamW steps of InternVL2-2B at full width and depth on the
                 paper's mixed data (items that fill the media window; see
                 ``rows``); launch counts of K1–K3 over those steps;
   6. paths    — at full width and 2+2 layers, loss and gradients with the
                 kernels against the same step through the naive attention
                 (the oracle that materializes the scores);
-  7. summary  — one JSON line of the kernels, the card line, then the result.
+  7. decoders — 3 AdamW steps each of RWKV6-7B and Jamba-v0.1 (dense FFNs)
+                at full width, depth cut to 8 layers, on rows packed by
+                ``pack_items`` from the mixed data; launch counts of K4–K7 and
+                of K1–K3 at Jamba's attention shape per step;
+  8. ssm paths— at full width and 2 layers, each decoder with the scan
+                kernels against the naive scans (Python loops over time);
+  9. summary  — one JSON line of the kernels, the card line, then the result.
 
+Counts are set to 0 just before a training path and read just after it.
 Any failed check raises and the script exits non-zero.
 """
 from __future__ import annotations
@@ -36,19 +47,44 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16 = 989e12            # H100 SXM dense tensor-core FLOP/s
+# The scans' arithmetic is elementwise fp32 state updates (and exponentials)
+# with no matrix product for the tensor cores in their sequential form, so
+# their bound takes the fp32 CUDA-core peak.
+PEAK_FP32 = 67e12
 HBM_BYTES_PER_S = 3.35e12
-KERNEL_SOURCE = "src/repro_torch/kernels/csrc/packed_flash_attention.cu"
+CSRC = "src/repro_torch/kernels/csrc/"
+SOURCE = {"K1": "packed_flash_attention.cu", "K2": "packed_flash_attention.cu",
+          "K3": "packed_flash_attention.cu", "K4": "mamba_scan.cu",
+          "K5": "mamba_scan.cu", "K6": "rwkv6_scan.cu", "K7": "rwkv6_scan.cu"}
 REPLACES = {"K1": "src/repro/kernels/packed_flash_attention.py:59",
             "K2": "src/repro/kernels/packed_flash_attention.py:122",
-            "K3": "src/repro/kernels/packed_flash_attention.py:149"}
+            "K3": "src/repro/kernels/packed_flash_attention.py:149",
+            "K4": "src/repro/kernels/mamba_scan.py:41",
+            "K5": "src/repro/kernels/mamba_scan.py:68",
+            "K6": "src/repro/kernels/rwkv6_scan.py:43",
+            "K7": "src/repro/kernels/rwkv6_scan.py:73"}
 COUNTER = {"K1": "fwd", "K2": "bwd_dq", "K3": "bwd_dkv"}
+SCAN_NAME = {"K4": "mamba_fwd", "K5": "mamba_bwd", "K6": "wkv6_fwd",
+             "K7": "wkv6_bwd"}
+# The decoders' training rows: 2 microbatches x 2 rows x 4096 tokens, items
+# of the mixed data packed by pack_items, 256 placeholder tokens per media
+# item (InternVL's LLM tokens per image).  Depth cut to 8 layers (one Jamba
+# period): RWKV6-7B's 32 layers would need ~121 GB of fp32 parameters and
+# AdamW moments, Jamba's experts ~45 GB per MoE layer (ROADMAP Queue 1).
+DEC_LAYERS, DEC_S, DEC_MB, DEC_ROWS, DEC_TPM = 8, 4096, 2, 2, 256
+# The naive scans' autograd keeps every step's state: the ssm-path check
+# runs one microbatch of 2 rows of this length.
+PATH_S = 1024
 # Kernel vs plain, per output, both relative to the plain output itself:
 # (max|err| / max|plain|, ||err|| / ||plain||).  In bf16 both sides round
 # their fp32 results once (2^-8 relative), so they differ by about one bf16
 # ulp where they differ at all; in fp32 only by summation order.
 TOL = {"bfloat16": (2e-2, 1e-2), "float32": (1e-4, 1e-5)}
 # Kernel path vs naive path through the bf16 model, relative.  Measured on
-# an H100: loss 1.3e-5, grad norm 3.2e-5, gradients 8.2e-3.
+# an H100 at 2 layers (loss, grad norm, gradients): InternVL2-2B's attention
+# 1.3e-5, 3.2e-5, 8.2e-3; RWKV6-7B's WKV 1.4e-5, 1.3e-4, 1.5e-2; Jamba's
+# Mamba + attention 1.4e-5, 5.2e-6, 6.9e-3.  The same bounds hold all three:
+# both sides round the fp32 output (and its input gradients) to bf16 once.
 PATH_TOL = {"loss": 2e-4, "grad_norm": 3e-3,
             # ||g_kernel - g_naive|| / ||g_naive|| over every parameter
             "grads": 5e-2}
@@ -74,14 +110,17 @@ def main() -> int:
     sys.path.insert(0, os.path.join(HERE, "src"))
     import numpy as np
 
-    from repro_torch.common.pytree import global_norm, tree_leaves
-    from repro_torch.configs import internvl2_2b
+    from repro_torch.common.pytree import global_norm, tree_leaves, tree_paths
+    from repro_torch.configs import internvl2_2b, jamba_v0_1_52b, rwkv6_7b
+    from repro_torch.data.packing import pack_items
     from repro_torch.data.synthetic import MixedDataset
-    from repro_torch.kernels import bench, build
+    from repro_torch.kernels import bench, build, mamba_scan, rwkv6_scan
     from repro_torch.kernels import packed_flash_attention as pfa
-    from repro_torch.models import mllm
+    from repro_torch.models import mllm, model
     from repro_torch.models.model import FwdCtx
     from repro_torch.train import optim, step
+
+    t_start = time.perf_counter()
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -95,7 +134,7 @@ def main() -> int:
 
     # 2. build ------------------------------------------------------------- #
     t0 = time.perf_counter()
-    build.load("packed_flash_attention")
+    build.load_all(["packed_flash_attention", "mamba_scan", "rwkv6_scan"])
     log(f"[build] {time.perf_counter() - t0:.1f} s "
         f"(nvcc: {json.dumps(build.LOG.seconds)})")
     for lib, lines in build.LOG.ptxas.items():
@@ -122,19 +161,58 @@ def main() -> int:
                 window=c["window"], block_q=256, block_k=256, plain=plain)
             dq, dk, dv = torch.autograd.grad(o, (q, k, v), c["do"])
             res.append((o.detach(), dq, dk, dv))
+        return rel_errors(("o", "dq", "dk", "dv"), *res)
+
+    def rel_errors(names, kernel, plain):
+        """Per output: (max|err|, max|plain|, ||err|| / ||plain||)."""
         torch.cuda.synchronize()
         errs = {}
-        for nm, a, b in zip(("o", "dq", "dk", "dv"), *res):
+        for nm, a, b in zip(names, kernel, plain):
             d, b = a.float() - b.float(), b.float()
             errs[nm] = (d.abs().max().item(), b.abs().max().item(),
                         (d.norm() / b.norm()).item())
         return errs
+
+    def check_pair(cname, errs, dtype):
+        """Fail unless every output is within TOL of its plain version."""
+        tol_max, tol_rel = TOL[str(dtype).split(".")[-1]]
+        ok = all(e <= tol_max * m and rel <= tol_rel for e, m, rel in errs.values())
+        log(f"[compare] {cname}: " + ", ".join(
+            f"{k} max|err| {e:.3e} (tol {tol_max * m:.3e} = {tol_max:.0e} x max|plain| "
+            f"{m:.3e}), ||err||/||plain|| {rel:.3e} (tol {tol_rel:.0e})"
+            for k, (e, m, rel) in errs.items()) + (" OK" if ok else " FAIL"))
+        if not ok:
+            raise SystemExit(f"kernel disagrees with its plain version: {cname}")
 
     def seg_rows(S, lens):
         s = torch.zeros(len(lens), S, dtype=torch.int32)
         for i, n in enumerate(lens):
             s[i, :n] = 1
         return s
+
+    # the decoders of phases 7-8 and their packed rows (numpy, seeded)
+    rwkv_cfg = dataclasses.replace(rwkv6_7b.CFG, n_layers=DEC_LAYERS)
+    jamba_cfg = dataclasses.replace(jamba_v0_1_52b.CFG, n_layers=DEC_LAYERS,
+                                    ffn_pattern=("dense",))
+
+    def decoder_batch(cfg, seed, n_mb=DEC_MB, S=DEC_S):
+        """n_mb x DEC_ROWS rows of S tokens: items of the mixed data drawn
+        until a row overflows, then packed (the overflow is truncated and
+        counted by pack_items)."""
+        ds = MixedDataset("mixed", seed=seed, tokens_per_media_item=DEC_TPM)
+        rng = np.random.default_rng(seed)
+        packed = []
+        for _ in range(n_mb * DEC_ROWS):
+            items = ds.sample(1)
+            while sum(it.llm_seq_len(DEC_TPM) for it in items) < S:
+                items += ds.sample(1)
+            packed.append(pack_items(items, S, DEC_TPM, cfg.vocab_size, rng))
+        return {k: np.stack([getattr(pb, k)[0] for pb in packed]).reshape(
+            n_mb, DEC_ROWS, S) for k in ("tokens", "labels", "segment_ids",
+                                         "positions")}
+
+    dec_batches = {"rwkv6-7b": [decoder_batch(rwkv_cfg, s) for s in range(3)],
+                   "jamba": [decoder_batch(jamba_cfg, 10 + s) for s in range(3)]}
 
     enc, llm_cfg = internvl2_2b.ENCODER, internvl2_2b.LLM
     S_ENC, S_LLM = 4096, 256 + 1024
@@ -148,6 +226,11 @@ def main() -> int:
                     G=llm_cfg.n_heads // llm_cfg.n_kv_heads, S=S_LLM,
                     D=llm_cfg.head_dim, causal=True,
                     seg=seg_rows(S_LLM, [256 + 700, 256 + 1024])),
+        # Jamba's attention layer: packed rows (segments 1..n, 0 = padding)
+        "jamba": dict(B=DEC_ROWS, KH=jamba_cfg.n_kv_heads,
+                      G=jamba_cfg.n_heads // jamba_cfg.n_kv_heads, S=DEC_S,
+                      D=jamba_cfg.head_dim, causal=True,
+                      seg=torch.as_tensor(dec_batches["jamba"][0]["segment_ids"][0])),
     }
     masked = seg_rows(200, [200])
     masked[:, :40] = 7                              # 40 rows attend nothing
@@ -167,14 +250,7 @@ def main() -> int:
     max_err = {}
     for cname, c in cases.items():
         errs = run_pair(c)
-        tol_max, tol_rel = TOL[str(c["q"].dtype).split(".")[-1]]
-        ok = all(e <= tol_max * m and rel <= tol_rel for e, m, rel in errs.values())
-        log(f"[compare] {cname}: " + ", ".join(
-            f"{k} max|err| {e:.3e} (tol {tol_max * m:.3e} = {tol_max:.0e} x max|plain| "
-            f"{m:.3e}), ||err||/||plain|| {rel:.3e} (tol {tol_rel:.0e})"
-            for k, (e, m, rel) in errs.items()) + (" OK" if ok else " FAIL"))
-        if not ok:
-            raise SystemExit(f"kernel disagrees with plain version: {cname}")
+        check_pair(cname, errs, c["q"].dtype)
         if cname.endswith("/bf16"):
             shape = cname.split("/")[0]
             max_err[("K1", shape)] = errs["o"][0]
@@ -187,6 +263,79 @@ def main() -> int:
         if not (torch.all(o[..., :40, :] == 0) and torch.all(lse[..., :40] == pfa.NEG_INF)):
             raise SystemExit("rows masked everywhere must give o = 0, lse = -1e30")
     del cases
+    torch.cuda.empty_cache()
+
+    # K4-K7: outputs and gradients through the autograd Functions
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    def rwkv_case(B, H, S, M, dtype, final_cot, path=False):
+        """r, k, v, w, u and the cotangents of (y, s_final).  At the path
+        shape w is the model's decay exp(-exp(dec)), dec in [-6, -1]."""
+        r, k, v = (rnd(B, H, S, M, dtype=dtype) for _ in range(3))
+        w = (torch.exp(-torch.exp(-6 + 5 * torch.rand(B, H, S, M, generator=gen, device=dev)))
+             if path else torch.sigmoid(rnd(B, H, S, M)))
+        return dict(kind="rwkv6", ins=(r, k, v, w, rnd(H, M) * 0.1),
+                    cots=(rnd(B, H, S, M, dtype=dtype),
+                          rnd(B, H, M, M) if final_cot else None),
+                    names=("y", "s_final", "dr", "dk", "dv", "dw", "du"))
+
+    def mamba_case(B, S, di, N, dtype, path=False):
+        """u, dt, B_t, C_t, A, D as the model makes them at the path shape
+        (dt = softplus(. - 4), A = -(1..N), D = 1) and the cotangent of y."""
+        u = rnd(B, S, di, dtype=dtype)
+        dt = torch.nn.functional.softplus(rnd(B, S, di) - (4 if path else 1)).to(dtype)
+        A = (-torch.arange(1, N + 1, device=dev, dtype=torch.float32).expand(di, N).contiguous()
+             if path else -torch.exp(rnd(di, N) * 0.3))
+        D = torch.ones(di, device=dev) if path else rnd(di)
+        return dict(kind="mamba", ins=(u, dt, rnd(B, S, N, dtype=dtype),
+                                       rnd(B, S, N, dtype=dtype), A, D),
+                    cots=(rnd(B, S, di, dtype=dtype),),
+                    names=("y", "du", "ddt", "dB", "dC", "dA", "dD"))
+
+    def scan_pair(c):
+        """Outputs and input gradients, kernels vs plain versions."""
+        res = []
+        for plain in (False, True):
+            ts = [t.clone().requires_grad_(True) for t in c["ins"]]
+            if c["kind"] == "rwkv6":
+                outs = rwkv6_scan.rwkv6_scan_bhsm(*ts, plain=plain)
+            else:
+                outs = (mamba_scan.mamba_scan_bsd(*ts, plain=plain),)
+            live = [(o, g) for o, g in zip(outs, c["cots"]) if g is not None]
+            grads = torch.autograd.grad([o for o, _ in live], ts,
+                                        [g for _, g in live])
+            res.append([o.detach() for o in outs] + list(grads))
+        return rel_errors(c["names"], *res)
+
+    SCAN_SHAPES = {"rwkv6-7b": dict(B=DEC_ROWS, H=rwkv_cfg.d_model // rwkv_cfg.rwkv_head_dim,
+                                    S=DEC_S, M=rwkv_cfg.rwkv_head_dim),
+                   "jamba": dict(B=DEC_ROWS, S=DEC_S, di=jamba_cfg.ssm_expand * jamba_cfg.d_model,
+                                 N=jamba_cfg.ssm_d_state)}
+    sh_r, sh_m = SCAN_SHAPES["rwkv6-7b"], SCAN_SHAPES["jamba"]
+    scan_cases = {
+        # training passes no final-state cotangent
+        "rwkv6-7b/bf16": lambda: rwkv_case(sh_r["B"], sh_r["H"], sh_r["S"], sh_r["M"],
+                                           torch.bfloat16, False, path=True),
+        "jamba/bf16": lambda: mamba_case(sh_m["B"], sh_m["S"], sh_m["di"], sh_m["N"],
+                                         torch.bfloat16, path=True),
+        "rwkv6_prime_S257_B2_ds/f32": lambda: rwkv_case(2, 3, 257, 64, torch.float32, True),
+        "rwkv6_S97_M32_ds/f32": lambda: rwkv_case(1, 2, 97, 32, torch.float32, True),
+        "mamba_prime_S257_di300/f32": lambda: mamba_case(2, 257, 300, 16, torch.float32),
+        "mamba_S97_B3_di130/f32": lambda: mamba_case(3, 97, 130, 16, torch.float32),
+    }
+    log(f"[compare] scan chunks: K4/K5 {mamba_scan.CHUNK}, K6/K7 {rwkv6_scan.CHUNK}")
+    for cname, make in scan_cases.items():
+        c = make()
+        errs = scan_pair(c)
+        check_pair(cname, errs, c["ins"][0].dtype)
+        if cname.endswith("/bf16"):
+            shape = cname.split("/")[0]
+            fwd, bwd = ("K6", "K7") if c["kind"] == "rwkv6" else ("K4", "K5")
+            n_out = 2 if c["kind"] == "rwkv6" else 1
+            max_err[(fwd, shape)] = max(e for e, _, _ in list(errs.values())[:n_out])
+            max_err[(bwd, shape)] = max(e for e, _, _ in list(errs.values())[n_out:])
+        del c
     torch.cuda.empty_cache()
 
     # 4. timing ------------------------------------------------------------ #
@@ -252,12 +401,16 @@ def main() -> int:
             "K2": (1.5 * f_fwd, qb + 2 * kvb + segb + qb + 2 * rowb + qb),
             "K3": (2.0 * f_fwd, qb + 2 * kvb + segb + qb + 2 * rowb + 2 * kvb),
         }
+        # SDPA's backward alone: fwd+bwd - fwd, one number for K2 and K3 together
+        lib = {"K1": lib_fwd, "K2": lib_fwd_bwd - lib_fwd, "K3": lib_fwd_bwd - lib_fwd}
         for kn, (ops_, nbytes) in work.items():
             t_ops, t_bytes = ops_ / PEAK_BF16 * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
             timing[(kn, shape)] = dict(
                 ms=t[kn], plain_ms=plain[kn], bound_ms=max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
-                library_ms=lib_fwd if kn == "K1" else None)
+                library_ms=lib[kn],
+                library_note=("SDPA with the same boolean mask" if kn == "K1" else
+                              "SDPA backward (fwd+bwd - fwd), dq and dk/dv together"))
             r = timing[(kn, shape)]
             log(f"[timing] {kn} {shape} (B={B} KH={KH} G={G} S={S} D={D} bf16 "
                 f"causal={causal}): kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
@@ -272,6 +425,64 @@ def main() -> int:
             f"K2+K3 {t['K2'] + t['K3']:.3f} ms")
         del c, q, k, v, do, o, lse, delta, bargs, qs, qg, kg, vg, keep
     torch.cuda.empty_cache()
+
+    # K4-K7 at the decoders' scan shapes (bf16 sequences, f32 decay / A, D)
+    c = scan_cases["rwkv6-7b/bf16"]()
+    r, k, v, w, u = c["ins"]
+    dy = c["cots"][0]
+    ds = torch.zeros(sh_r["B"], sh_r["H"], sh_r["M"], sh_r["M"], device=dev)
+    y, s_fin, s_init = rwkv6_scan.wkv_fwd(r, k, v, w, u, rwkv6_scan.CHUNK)
+    y_p, _, s_init_p = rwkv6_scan.fwd_plain(r, k, v, w, u, rwkv6_scan.CHUNK)
+    scan_t = {
+        "K6": (cuda_ms(lambda: rwkv6_scan.wkv_fwd(r, k, v, w, u, rwkv6_scan.CHUNK), 10),
+               cuda_ms(lambda: rwkv6_scan.fwd_plain(r, k, v, w, u, rwkv6_scan.CHUNK), 1, 0)),
+        "K7": (cuda_ms(lambda: rwkv6_scan.wkv_bwd(r, k, v, w, u, s_init, dy, ds,
+                                                  rwkv6_scan.CHUNK), 10),
+               cuda_ms(lambda: rwkv6_scan.bwd_plain(r, k, v, w, u, s_init_p, dy, ds,
+                                                    rwkv6_scan.CHUNK), 1, 0)),
+    }
+    del c, r, k, v, w, u, dy, ds, y, s_fin, s_init, y_p, s_init_p
+    c = scan_cases["jamba/bf16"]()
+    u, dtt, Bt, Ct, A, D = c["ins"]
+    dy = c["cots"][0]
+    y, h_init = mamba_scan.scan_fwd(u, dtt, Bt, Ct, A, D, mamba_scan.CHUNK)
+    scan_t["K4"] = (cuda_ms(lambda: mamba_scan.scan_fwd(u, dtt, Bt, Ct, A, D,
+                                                        mamba_scan.CHUNK), 10),
+                    cuda_ms(lambda: mamba_scan.fwd_plain(u, dtt, Bt, Ct, A, D,
+                                                         mamba_scan.CHUNK), 1, 0))
+    scan_t["K5"] = (cuda_ms(lambda: mamba_scan.scan_bwd(u, dtt, Bt, Ct, A, D, h_init, dy,
+                                                        mamba_scan.CHUNK), 10),
+                    cuda_ms(lambda: mamba_scan.bwd_plain(u, dtt, Bt, Ct, A, D, h_init, dy,
+                                                         mamba_scan.CHUNK), 1, 0))
+    del c, u, dtt, Bt, Ct, A, D, dy, y, h_init
+    torch.cuda.empty_cache()
+    # (shape, operations, bytes).  K6/K7: the operations the WKV recurrence
+    # needs (5 and 11 per state element and step); K4/K5: the reference's
+    # selective-scan count, the backward at 2x (both are bound by bytes).
+    dims_r = [sh_r[n] for n in "BHSM"]
+    work = {
+        "K6": ("rwkv6-7b", bench.rwkv6_fwd_ops(*dims_r), bench.rwkv6_fwd_bytes(*dims_r, 2)),
+        "K7": ("rwkv6-7b", bench.rwkv6_bwd_ops(*dims_r), bench.rwkv6_bwd_bytes(*dims_r, 2)),
+        "K4": ("jamba", bench.mamba_flops(sh_m["B"], sh_m["S"], sh_m["di"], sh_m["N"]),
+               bench.mamba_fwd_bytes(sh_m["B"], sh_m["S"], sh_m["di"], sh_m["N"], 2)),
+        "K5": ("jamba", 2 * bench.mamba_flops(sh_m["B"], sh_m["S"], sh_m["di"], sh_m["N"]),
+               bench.mamba_bwd_bytes(sh_m["B"], sh_m["S"], sh_m["di"], sh_m["N"], 2)),
+    }
+    for kn, (shape, ops_, nbytes) in work.items():
+        t_ops, t_bytes = ops_ / PEAK_FP32 * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        ms_k, ms_p = scan_t[kn]
+        timing[(kn, shape)] = dict(
+            ms=ms_k, plain_ms=ms_p, bound_ms=max(t_ops, t_bytes),
+            bound_by="operations" if t_ops >= t_bytes else "bytes", library_ms=None,
+            library_note="none: no PyTorch call computes a "
+                         + ("WKV6 recurrence" if kn in ("K6", "K7") else "selective scan"))
+        log(f"[timing] {kn} {shape} ({json.dumps(SCAN_SHAPES[shape])} bf16): kernel "
+            f"{ms_k:.3f} ms, plain {ms_p:.3f} ms, bound {max(t_ops, t_bytes):.4f} ms "
+            f"({'operations' if t_ops >= t_bytes else 'bytes'}: {ops_ / 1e9:.2f} GFLOP at "
+            f"67 TFLOP/s fp32 = {t_ops:.4f} ms, {nbytes / 1e9:.3f} GB = {t_bytes:.4f} ms), "
+            f"{ops_ / ms_k / 1e9:.2f} TFLOP/s")
+    log(f"[timing] the reference's WKV count (bench.rwkv6_flops, 6 per state element "
+        f"and step) would be {bench.rwkv6_flops(*dims_r) / 1e9:.2f} GFLOP for K6")
 
     # 5. train: InternVL2-2B, full width and depth ------------------------- #
     cfg = internvl2_2b.CFG
@@ -326,10 +537,12 @@ def main() -> int:
         if not math.isfinite(loss):
             raise SystemExit("non-finite loss")
     # launches per kernel and per path shape, over the 3 steps
-    launches = {(kn, shape): pfa.LAUNCHES[(COUNTER[kn], sh["D"], sh["causal"])]
-                for shape, sh in path_shapes.items() for kn in COUNTER}
+    mllm_shapes = ("encoder", "llm")
+    launches = {(kn, shape): pfa.LAUNCHES[(COUNTER[kn], path_shapes[shape]["D"],
+                                           path_shapes[shape]["causal"])]
+                for shape in mllm_shapes for kn in COUNTER}
     peak = torch.cuda.max_memory_allocated()
-    for shape in path_shapes:
+    for shape in mllm_shapes:
         n = [launches[(kn, shape)] for kn in COUNTER]
         log(f"[train] launches over 3 steps, {shape}: K1 {n[0]}, K2 {n[1]}, K3 {n[2]} "
             f"(per step {n[0] / 3:g}/{n[1] / 3:g}/{n[2] / 3:g})")
@@ -341,6 +554,37 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 6. kernel path vs naive path (full width, 2 + 2 layers) -------------- #
+    def path_gap(tag, loss_for, params, mb):
+        """Loss and gradients of one microbatch through the kernel path and
+        the naive path (``loss_for(impl)`` builds each loss function); fails
+        past PATH_TOL.  Prints the leaves that carry most of the gap."""
+        named = tree_paths(params)
+        paths, grads = {}, {}
+        for impl in ("kernel", "naive"):
+            for _, p in named:
+                p.grad = None
+            t0 = time.perf_counter()
+            loss = loss_for(impl)(params, mb)
+            loss.backward()
+            grads[impl] = [p.grad.clone() for _, p in named]
+            gn = global_norm(grads[impl]).item()
+            paths[impl] = {"loss": loss.item(), "grad_norm": gn}
+            log(f"[{tag}] {impl}: loss {loss.item():.6f}, grad norm {gn:.6f} "
+                f"({time.perf_counter() - t0:.1f} s)")
+        gaps = [(a - b).norm().item() for a, b in zip(grads["kernel"], grads["naive"])]
+        gap = math.sqrt(sum(g * g for g in gaps))
+        top = sorted(range(len(gaps)), key=lambda i: -gaps[i])[:6]
+        log(f"[{tag}] largest shares of ||g_kernel - g_naive||^2: " + ", ".join(
+            f"{named[i][0]} {gaps[i] ** 2 / max(gap, 1e-30) ** 2:.3f} (leaf "
+            f"{gaps[i] / max(grads['naive'][i].norm().item(), 1e-30):.2e})" for i in top))
+        rels = {key: abs(paths["kernel"][key] - paths["naive"][key])
+                / max(abs(paths["naive"][key]), 1e-12) for key in ("loss", "grad_norm")}
+        rels["grads"] = gap / max(paths["naive"]["grad_norm"], 1e-12)
+        for key, tol in PATH_TOL.items():
+            log(f"[{tag}] {key}: relative difference {rels[key]:.3e} (tol {tol:.0e})")
+            if not (math.isfinite(rels[key]) and rels[key] <= tol):
+                raise SystemExit(f"{tag}: kernel path and naive path disagree on {key}")
+
     cfg2 = dataclasses.replace(
         cfg, encoder=dataclasses.replace(cfg.encoder, n_layers=2),
         llm=dataclasses.replace(cfg.llm, n_layers=2))
@@ -349,34 +593,86 @@ def main() -> int:
     mb = {k: v[0] for k, v in batch(7, fill_media=False).items()}
     log(f"[paths] media per row {mb['media_mask'].sum(-1).tolist()}, "
         f"text per row {mb['text_mask'].sum(-1).tolist()}")
-    paths, grads = {}, {}
-    for impl in ("kernel", "naive"):
-        for p in tree_leaves(params2):
-            p.grad = None
-        loss = step.make_loss_fn(cfg2, FwdCtx(attn_impl=impl))(params2, mb)
-        loss.backward()
-        grads[impl] = [p.grad.clone() for p in tree_leaves(params2)]
-        gn = global_norm(grads[impl]).item()
-        paths[impl] = {"loss": loss.item(), "grad_norm": gn}
-        log(f"[paths] attn_impl={impl}: loss {loss.item():.6f}, grad norm {gn:.6f}")
-    gap = global_norm([a - b for a, b in zip(grads["kernel"], grads["naive"])]).item()
-    rels = {key: abs(paths["kernel"][key] - paths["naive"][key])
-            / max(abs(paths["naive"][key]), 1e-12) for key in ("loss", "grad_norm")}
-    rels["grads"] = gap / max(paths["naive"]["grad_norm"], 1e-12)
-    for key, tol in PATH_TOL.items():
-        log(f"[paths] {key}: relative difference {rels[key]:.3e} (tol {tol:.0e})")
-        if not (math.isfinite(rels[key]) and rels[key] <= tol):
-            raise SystemExit(f"kernel path and naive path disagree on {key}")
-    del grads
+    path_gap("paths attn_impl", lambda impl: step.make_loss_fn(cfg2, FwdCtx(attn_impl=impl)),
+             params2, mb)
+    del params2, mb
+    torch.cuda.empty_cache()
 
-    # 7. summary ----------------------------------------------------------- #
+    # 7. train: RWKV6-7B and Jamba, full width, 8 layers ------------------ #
+    def reset_counts():
+        for mod in (pfa, mamba_scan, rwkv6_scan):
+            mod.reset_launches()
+
+    def train_decoder(name, cfg, full):
+        t0 = time.perf_counter()
+        params = model.init(cfg, seed=0, device=dev)
+        opt = optim.adamw_init(params)
+        n_params = sum(p.numel() for p in tree_leaves(params))
+        torch.cuda.synchronize()
+        kinds = [k.value for k in cfg.layer_kinds]
+        log(f"[decoders] {name}: {n_params / 1e9:.3f} B params (fp32), {cfg.n_layers} "
+            f"layers of d{cfg.d_model} ({', '.join(kinds)}), FFN pattern {cfg.ffn_pattern}; "
+            f"cut from {full.n_layers} layers and FFN pattern {full.ffn_pattern}; "
+            f"{DEC_MB} x {DEC_ROWS} rows x {DEC_S} tokens; init {time.perf_counter() - t0:.1f} s")
+        batches = [step.as_tensors(b, device=dev) for b in dec_batches[name]]
+        train_step = step.make_train_step(cfg, optim.AdamWConfig(), ctx=FwdCtx())
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        for i, b in enumerate(batches):
+            t0 = time.perf_counter()
+            params, opt, m = train_step(params, opt, b, 3e-4)
+            loss = m["loss"].item()
+            torch.cuda.synchronize()
+            used = (b["segment_ids"] > 0).sum(-1).tolist()
+            log(f"[decoders] {name} step {i}: loss {loss:.5f}, "
+                f"{time.perf_counter() - t0:.3f} s, tokens in segments per row {used}")
+            if not math.isfinite(loss):
+                raise SystemExit(f"{name}: non-finite loss")
+        counts = {("K4", name): mamba_scan.LAUNCHES["fwd"],
+                  ("K5", name): mamba_scan.LAUNCHES["bwd"],
+                  ("K6", name): rwkv6_scan.LAUNCHES["fwd"],
+                  ("K7", name): rwkv6_scan.LAUNCHES["bwd"]}
+        for kn in COUNTER:
+            counts[(kn, name)] = sum(n for (kk, _, _), n in pfa.LAUNCHES.items()
+                                     if kk == COUNTER[kn])
+        log(f"[decoders] {name}: launches over 3 steps " + ", ".join(
+            f"{kn} {n} ({n / 3:g}/step)" for (kn, _), n in counts.items()) +
+            f"; max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del params, opt, batches, train_step
+        torch.cuda.empty_cache()
+        return counts
+
+    dec_counts = {**train_decoder("rwkv6-7b", rwkv_cfg, rwkv6_7b.CFG),
+                  **train_decoder("jamba", jamba_cfg, jamba_v0_1_52b.CFG)}
+    on_path = [("K6", "rwkv6-7b"), ("K7", "rwkv6-7b"), ("K4", "jamba"), ("K5", "jamba"),
+               ("K1", "jamba"), ("K2", "jamba"), ("K3", "jamba")]
+    if any(dec_counts[key] == 0 for key in on_path):
+        raise SystemExit(f"a kernel was not launched on a decoder path: {dec_counts}")
+    launches.update({key: dec_counts[key] for key in on_path})
+
+    # 8. scan kernels vs naive scans (full width, 2 layers) ---------------- #
+    for dec, cfg2 in (("rwkv6-7b", dataclasses.replace(rwkv_cfg, n_layers=2)),
+                      ("jamba", dataclasses.replace(jamba_cfg, n_layers=2,
+                                                    layer_pattern=("mamba", "attention")))):
+        params2 = model.init(cfg2, seed=1, device=dev)
+        mb = {k: v[0] for k, v in step.as_tensors(
+            decoder_batch(cfg2, 20, n_mb=1, S=PATH_S), device=dev).items()}
+        log(f"[ssm paths] {dec}: {[k.value for k in cfg2.layer_kinds]}, "
+            f"{DEC_ROWS} rows x {PATH_S} tokens")
+        path_gap(f"ssm paths {dec} ssm_impl",
+                 lambda impl: step.make_loss_fn(cfg2, FwdCtx(ssm_impl=impl)), params2, mb)
+        del params2, mb
+        torch.cuda.empty_cache()
+
+    # 9. summary ----------------------------------------------------------- #
     kernels = []
     for (kn, shape), r in timing.items():
         kernels.append({
-            "name": f"{kn}_{COUNTER[kn]}[{shape}]", "route": "cuda",
-            "source": KERNEL_SOURCE, "replaces": REPLACES[kn],
+            "name": f"{kn}_{SCAN_NAME.get(kn) or COUNTER[kn]}[{shape}]", "route": "cuda",
+            "source": CSRC + SOURCE[kn], "replaces": REPLACES[kn],
             "launches": launches[(kn, shape)], "max_abs_err": max_err[(kn, shape)],
             **r})
+    log(f"[summary] wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -46,6 +46,12 @@ class ModelConfig:
     use_rope: bool = True
     activation: str = "swiglu"       # swiglu | geglu | gelu | relu_sq
     ffn_pattern: Tuple[str, ...] = ("dense",)
+    n_experts: int = 0
+    top_k: int = 0
+    ssm_d_state: int = 16            # Mamba
+    ssm_d_conv: int = 4
+    ssm_expand: int = 2
+    rwkv_head_dim: int = 64          # RWKV6
     input_embed_dim: int = 0         # >0: consume precomputed embeddings via in_proj
     has_lm_head: bool = True
     norm_eps: float = 1e-5

@@ -4,8 +4,12 @@ An axis is padded up to the next block multiple rather than tiled by the
 largest divisor, which would degenerate to block size 1 on prime lengths.
 Padded attention positions carry segment id ``PAD_SEGMENT`` (−1), which no
 real segment id (≥ 0) equals, so the segment mask hides the tail; padded
-query rows are zeroed by the ``l > 0`` guard and sliced off.  The CUDA
-kernels mask the ragged edge themselves and need no padding.
+query rows are zeroed by the ``l > 0`` guard and sliced off.  Padded scan
+steps are identities: Mamba's ``dt = 0`` gives decay 1 and no input;
+RWKV6's ``w = 1`` with ``r = k = v = 0`` passes the state through, so final
+states and real positions' outputs and gradients are exact.  The CUDA
+kernels mask the ragged edge themselves (the scans load these identity
+values past the end) and need no padding.
 
 >>> pick_block(128, 64)
 (64, 128)
@@ -22,6 +26,8 @@ import torch
 import torch.nn.functional as F
 
 PAD_SEGMENT = -1
+MAMBA_PAD_DT = 0.0      # with u, B_t, C_t = 0
+RWKV6_PAD_W = 1.0       # with r, k, v = 0
 
 
 def pick_block(s: int, target: int) -> tuple:

@@ -8,6 +8,7 @@ the CPU tests import every module, and this machine need have no ``nvcc``.
 
     >>> from repro_torch.kernels import build
     >>> lib = build.load("packed_flash_attention")      # doctest: +SKIP
+    >>> libs = build.load_all(["mamba_scan", "rwkv6_scan"])  # doctest: +SKIP
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -33,7 +35,19 @@ SIGNATURES = {
         "pfa_bwd_dq": [P] * 9 + [I] * 9 + [P],
         "pfa_bwd_dkv": [P] * 10 + [I] * 9 + [P],
     },
+    "mamba_scan": {
+        "mamba_fwd": [P] * 8 + [I] * 5 + [P],
+        "mamba_bwd": [P] * 14 + [I] * 5 + [P],
+    },
+    "rwkv6_scan": {
+        "wkv6_fwd": [P] * 8 + [I] * 6 + [P],
+        "wkv6_bwd": [P] * 13 + [I] * 6 + [P],
+    },
 }
+
+
+# Shared memory one block may use on the H100 (dynamic, after opting in).
+SMEM_PER_BLOCK = 232_448
 
 
 class BuildLog:
@@ -92,3 +106,30 @@ def load(name: str) -> ctypes.CDLL:
         f.restype = ctypes.c_int
     _LOADED[name] = lib
     return lib
+
+
+def load_all(names) -> dict[str, ctypes.CDLL]:
+    """``load`` each library, the builds running side by side (one ``nvcc``
+    process per source); a failed build raises."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(load, names)))
+
+
+def route(t, what: str) -> str:
+    """Every kernel wrapper's rule: ``"kernel"`` for a CUDA tensor,
+    ``"plain"`` (the kernel's plain PyTorch version) for a CPU tensor; any
+    other device raises."""
+    if t.device.type == "cuda":
+        return "kernel"
+    if t.device.type == "cpu":
+        return "plain"
+    raise ValueError(f"{what} runs on cuda or cpu, not {t.device}")
+
+
+def call(fn, *args) -> None:
+    """Call a library function and raise on the ``cudaError_t`` it returns
+    (a launch the card refuses never runs, and no later sync reports it)."""
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} failed: cudaError_t {err}")

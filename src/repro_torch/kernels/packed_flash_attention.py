@@ -184,12 +184,6 @@ def _check(q, k, v, seg_q, seg_k, dout=None, lse=None, delta=None):
         raise ValueError("B * KH * G exceeds the grid's y limit")
 
 
-def _call(fn, *args):
-    err = fn(*args)
-    if err != 0:
-        raise RuntimeError(f"{fn.__name__} failed: cudaError_t {err}")
-
-
 def _dims(q, k, causal, window):
     B, KH, G, Sq, D = q.shape
     return (B, KH, G, Sq, k.shape[2], D, int(causal), int(window),
@@ -202,9 +196,9 @@ def _fwd_cuda(q, k, v, seg_q, seg_k, causal, window):
     lib = build.load("packed_flash_attention")
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
-    _call(lib.pfa_fwd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-          seg_q.data_ptr(), seg_k.data_ptr(), o.data_ptr(), lse.data_ptr(),
-          *_dims(q, k, causal, window))
+    build.call(lib.pfa_fwd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+               seg_q.data_ptr(), seg_k.data_ptr(), o.data_ptr(), lse.data_ptr(),
+               *_dims(q, k, causal, window))
     _count("fwd", q, causal)
     return o, lse
 
@@ -213,9 +207,9 @@ def _bwd_dq_cuda(q, k, v, seg_q, seg_k, dout, lse, delta, causal, window):
     _check(q, k, v, seg_q, seg_k, dout, lse, delta)
     lib = build.load("packed_flash_attention")
     dq = torch.empty_like(q)
-    _call(lib.pfa_bwd_dq, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-          seg_q.data_ptr(), seg_k.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-          delta.data_ptr(), dq.data_ptr(), *_dims(q, k, causal, window))
+    build.call(lib.pfa_bwd_dq, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+               seg_q.data_ptr(), seg_k.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+               delta.data_ptr(), dq.data_ptr(), *_dims(q, k, causal, window))
     _count("bwd_dq", q, causal)
     return dq
 
@@ -224,10 +218,10 @@ def _bwd_dkv_cuda(q, k, v, seg_q, seg_k, dout, lse, delta, causal, window):
     _check(q, k, v, seg_q, seg_k, dout, lse, delta)
     lib = build.load("packed_flash_attention")
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _call(lib.pfa_bwd_dkv, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-          seg_q.data_ptr(), seg_k.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-          delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-          *_dims(q, k, causal, window))
+    build.call(lib.pfa_bwd_dkv, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+               seg_q.data_ptr(), seg_k.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+               delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+               *_dims(q, k, causal, window))
     _count("bwd_dkv", q, causal)
     return dk, dv
 
@@ -235,17 +229,9 @@ def _bwd_dkv_cuda(q, k, v, seg_q, seg_k, dout, lse, delta, causal, window):
 # --------------------------------------------------------------------------- #
 # Wrappers: the kernel on a CUDA tensor, the plain version on a CPU tensor
 # --------------------------------------------------------------------------- #
-def _route(t: torch.Tensor) -> str:
-    if t.device.type == "cuda":
-        return "kernel"
-    if t.device.type == "cpu":
-        return "plain"
-    raise ValueError(f"packed flash attention runs on cuda or cpu, not {t.device}")
-
-
 def flash_fwd(q, k, v, seg_q, seg_k, causal, window, block_q, block_k):
     """K1 → (o, lse)."""
-    if _route(q) == "kernel":
+    if build.route(q, "packed flash attention") == "kernel":
         return _fwd_cuda(q, k, v, seg_q, seg_k, causal, window)
     return fwd_plain(q, k, v, seg_q, seg_k, causal, window, block_q, block_k)
 
@@ -253,7 +239,7 @@ def flash_fwd(q, k, v, seg_q, seg_k, causal, window, block_q, block_k):
 def flash_bwd_dq(q, k, v, seg_q, seg_k, dout, lse, delta, causal, window,
                  block_q, block_k):
     """K2 → dq."""
-    if _route(q) == "kernel":
+    if build.route(q, "packed flash attention") == "kernel":
         return _bwd_dq_cuda(q, k, v, seg_q, seg_k, dout, lse, delta, causal,
                             window)
     return bwd_dq_plain(q, k, v, seg_q, seg_k, dout, lse, delta, causal,
@@ -263,7 +249,7 @@ def flash_bwd_dq(q, k, v, seg_q, seg_k, dout, lse, delta, causal, window,
 def flash_bwd_dkv(q, k, v, seg_q, seg_k, dout, lse, delta, causal, window,
                   block_q, block_k):
     """K3 → (dk, dv)."""
-    if _route(q) == "kernel":
+    if build.route(q, "packed flash attention") == "kernel":
         return _bwd_dkv_cuda(q, k, v, seg_q, seg_k, dout, lse, delta, causal,
                              window)
     return bwd_dkv_plain(q, k, v, seg_q, seg_k, dout, lse, delta, causal,
@@ -315,7 +301,7 @@ def packed_flash_attention_bkgsd(q, k, v, seg_q, seg_k, *, causal: bool = True,
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     seg_q = seg_q.to(torch.int32).contiguous()
     seg_k = seg_k.to(torch.int32).contiguous()
-    plain = plain or _route(q) == "plain"
+    plain = plain or build.route(q, "packed flash attention") == "plain"
     if plain:
         q = pad_axis(q, Sq_p, axis=3)
         seg_q = pad_axis(seg_q, Sq_p, axis=1, value=PAD_SEGMENT)

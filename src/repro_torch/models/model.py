@@ -1,17 +1,19 @@
-"""Transformer stack for dense decoders and encoders (attention + dense FFN).
+"""Transformer stack for dense decoders, encoders, SSM (RWKV6) and hybrid
+(Mamba + attention) models with dense FFNs.
 
 Params tree (the reference's, with the stacked ``blocks/pos{j}`` leaves
-unstacked into one dict per layer):
+unstacked into one dict per layer, ``i = block * period + j``):
     embed/w            (vocab, d)          [if vocab_size > 0 and no in_proj]
     in_proj/w          (input_embed_dim,d) [if input_embed_dim > 0]
-    layers/{i}/...     ln1, attn, ln2, ffn of layer i
+    layers/{i}/...     ln1, attn | mamba, ln2, ffn of layer i; or ln1, rwkv,
+                       ln2 (the RWKV6 block carries its own channel mix)
     final_norm/scale
     unembed/w          (d, vocab)          [if has_lm_head and not tied]
 
-Layers run in a Python loop where the reference scans; in training each
-layer is checkpointed (``torch.utils.checkpoint``, non-reentrant) where the
-reference wraps the block in ``jax.checkpoint``.  MoE, Mamba and RWKV6
-layers are not ported yet and raise.
+Layers run in a Python loop where the reference scans over blocks of
+``block_period`` layers; in training each layer is checkpointed
+(``torch.utils.checkpoint``, non-reentrant) where the reference wraps each
+block in ``jax.checkpoint``.  MoE layers are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -23,7 +25,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.common.pytree import trainable
 from repro_torch.common.types import (FFNKind, LayerKind, ModelConfig,
                                       resolve_device, torch_dtype)
-from repro_torch.models.layers import attention, embed, ffn, norms
+from repro_torch.models.layers import (attention, embed, ffn, mamba, norms,
+                                       rwkv6)
 
 
 @dataclass
@@ -33,30 +36,45 @@ class FwdCtx:
     mode: str = "train"              # train | prefill
     attn_impl: str = "kernel"        # naive | kernel
     attn_block: int = 512            # tile of the plain attention versions
+    ssm_impl: str = "kernel"         # naive | kernel (Mamba and RWKV6 scans)
     remat: bool = True
 
 
 def _check_supported(cfg: ModelConfig):
-    for kind, fk in zip(cfg.layer_kinds, cfg.ffn_kinds):
-        if kind != LayerKind.ATTENTION or fk != FFNKind.DENSE:
+    for fk in cfg.ffn_kinds:
+        if fk != FFNKind.DENSE:
             raise NotImplementedError(
-                f"{cfg.name}: only attention layers with dense FFNs are ported "
-                f"(got {kind.value}/{fk.value})")
+                f"{cfg.name}: only dense FFNs are ported (got {fk.value})")
 
 
-def _layer_init(gen, cfg: ModelConfig, dtype):
+def _layer_init(gen, cfg: ModelConfig, kind: LayerKind, dtype):
     d = cfg.d_model
-    return {"ln1": norms.rms_init(d, dtype, gen.device),
-            "attn": attention.init(gen, cfg, dtype),
-            "ln2": norms.rms_init(d, dtype, gen.device),
-            "ffn": ffn.init(gen, cfg, dtype)}
+    p = {"ln1": norms.rms_init(d, dtype, gen.device)}
+    if kind == LayerKind.ATTENTION:
+        p["attn"] = attention.init(gen, cfg, dtype)
+    elif kind == LayerKind.MAMBA:
+        p["mamba"] = mamba.init(gen, cfg, dtype)
+    else:
+        p["rwkv"] = rwkv6.init(gen, cfg, dtype)
+    p["ln2"] = norms.rms_init(d, dtype, gen.device)
+    if kind != LayerKind.RWKV6:      # the RWKV6 block has its own channel mix
+        p["ffn"] = ffn.init(gen, cfg, dtype)
+    return p
 
 
-def _layer_apply(lp, x, cfg: ModelConfig, ctx: FwdCtx, positions, segment_ids):
+def _layer_apply(lp, x, cfg: ModelConfig, kind: LayerKind, ctx: FwdCtx,
+                 positions, segment_ids):
     h = norms.rms_apply(lp["ln1"], x, cfg.norm_eps)
-    x = x + attention.apply(lp["attn"], h, cfg, positions=positions,
-                            segment_ids=segment_ids, impl=ctx.attn_impl,
-                            block=ctx.attn_block)
+    if kind == LayerKind.ATTENTION:
+        x = x + attention.apply(lp["attn"], h, cfg, positions=positions,
+                                segment_ids=segment_ids, impl=ctx.attn_impl,
+                                block=ctx.attn_block)
+    elif kind == LayerKind.MAMBA:
+        x = x + mamba.apply(lp["mamba"], h, cfg, impl=ctx.ssm_impl)
+    else:
+        x = x + rwkv6.time_mix(lp["rwkv"], h, cfg, impl=ctx.ssm_impl)
+        h2 = norms.rms_apply(lp["ln2"], x, cfg.norm_eps)
+        return x + rwkv6.channel_mix(lp["rwkv"], h2, cfg)
     h2 = norms.rms_apply(lp["ln2"], x, cfg.norm_eps)
     return x + ffn.apply(lp["ffn"], h2, cfg)
 
@@ -74,7 +92,8 @@ def init(cfg: ModelConfig, seed: int = 0, device="cuda", gen=None):
         w = torch.randn((cfg.input_embed_dim, cfg.d_model), generator=gen,
                         device=gen.device) * cfg.input_embed_dim ** -0.5
         params["in_proj"] = {"w": w.to(dtype)}
-    params["layers"] = [_layer_init(gen, cfg, dtype) for _ in range(cfg.n_layers)]
+    params["layers"] = [_layer_init(gen, cfg, kind, dtype)
+                        for kind in cfg.layer_kinds]
     params["final_norm"] = norms.rms_init(cfg.d_model, dtype, gen.device)
     if cfg.has_lm_head and cfg.vocab_size > 0 and not cfg.tie_embeddings:
         params["unembed"] = embed.unembed_init(gen, cfg.d_model, cfg.vocab_size,
@@ -102,12 +121,12 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
 
     remat = (ctx.mode == "train" and cfg.remat and ctx.remat
              and torch.is_grad_enabled())
-    for lp in params["layers"]:
+    for lp, kind in zip(params["layers"], cfg.layer_kinds):
         if remat:
-            x = checkpoint(_layer_apply, lp, x, cfg, ctx, positions, segment_ids,
-                           use_reentrant=False)
+            x = checkpoint(_layer_apply, lp, x, cfg, kind, ctx, positions,
+                           segment_ids, use_reentrant=False)
         else:
-            x = _layer_apply(lp, x, cfg, ctx, positions, segment_ids)
+            x = _layer_apply(lp, x, cfg, kind, ctx, positions, segment_ids)
 
     x = norms.rms_apply(params["final_norm"], x, cfg.norm_eps)
     nan = torch.full((), float("nan"), device=x.device)

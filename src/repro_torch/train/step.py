@@ -1,5 +1,5 @@
-"""Train step for an MLLM: loss over microbatches with fp32 gradient
-accumulation, then AdamW.
+"""Train step for an MLLM or a plain decoder: loss over microbatches with
+fp32 gradient accumulation, then AdamW.
 
 The global batch arrives pre-partitioned into N_mb microbatches (leading
 axis); the step loops over them, accumulating fp32 gradients in the
@@ -12,8 +12,9 @@ import numpy as np
 import torch
 
 from repro_torch.common.pytree import tree_leaves, tree_map
-from repro_torch.common.types import MLLMConfig, resolve_device
+from repro_torch.common.types import MLLMConfig, ModelConfig, resolve_device
 from repro_torch.models import mllm as mllm_lib
+from repro_torch.models import model as model_lib
 from repro_torch.models.model import FwdCtx
 from repro_torch.train.loss import cross_entropy
 from repro_torch.train.optim import AdamWConfig, adamw_update
@@ -21,23 +22,39 @@ from repro_torch.train.optim import AdamWConfig, adamw_update
 LB_LOSS_WEIGHT = 0.01
 
 
-def make_loss_fn(desc: MLLMConfig, ctx: FwdCtx | None = None,
+def make_loss_fn(desc: MLLMConfig | ModelConfig, ctx: FwdCtx | None = None,
                  enc_ctx: FwdCtx | None = None,
                  with_aux: bool = False) -> Callable:
-    if not isinstance(desc, MLLMConfig):
-        raise NotImplementedError("the port's train step takes an MLLMConfig")
+    """loss_fn(params, mb).  An ``MLLMConfig`` takes the multimodal batch of
+    ``MixedDataset.materialize``; a decoder ``ModelConfig`` takes packed rows
+    (``tokens``, ``labels`` and optional ``positions``, ``segment_ids``, as
+    ``data.packing`` makes them)."""
     ctx = ctx or FwdCtx(mode="train")
 
-    def loss_fn(params, mb):
-        logits, aux = mllm_lib.forward_train(params, desc, mb, ctx=ctx,
-                                             enc_ctx=enc_ctx)
-        loss = cross_entropy(logits, mb["labels"]) + LB_LOSS_WEIGHT * aux["lb_loss"]
+    def finish(ce, aux):
+        loss = ce + LB_LOSS_WEIGHT * aux["lb_loss"]
         return (loss, aux) if with_aux else loss
 
+    if isinstance(desc, MLLMConfig):
+        def loss_fn(params, mb):
+            logits, aux = mllm_lib.forward_train(params, desc, mb, ctx=ctx,
+                                                 enc_ctx=enc_ctx)
+            return finish(cross_entropy(logits, mb["labels"]), aux)
+        return loss_fn
+
+    if desc.input_embed_dim > 0:
+        raise NotImplementedError(
+            "the encoder-only (masked prediction) loss is not ported yet")
+
+    def loss_fn(params, mb):
+        logits, _, aux = model_lib.forward(
+            params, desc, tokens=mb["tokens"], positions=mb.get("positions"),
+            segment_ids=mb.get("segment_ids"), ctx=ctx)
+        return finish(cross_entropy(logits, mb["labels"]), aux)
     return loss_fn
 
 
-def make_train_step(desc: MLLMConfig, opt_cfg: AdamWConfig,
+def make_train_step(desc: MLLMConfig | ModelConfig, opt_cfg: AdamWConfig,
                     ctx: FwdCtx | None = None,
                     enc_ctx: FwdCtx | None = None) -> Callable:
     """step(params, opt_state, batch, lr) -> (params, opt_state, metrics).

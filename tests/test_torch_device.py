@@ -3,6 +3,7 @@
 Entry points default to the card and raise without one — nothing quietly
 runs on the CPU.  The port imports neither jax nor the reference package.
 """
+import dataclasses
 import os
 import subprocess
 import sys
@@ -11,7 +12,8 @@ import pytest
 import torch
 
 from repro_torch.common.types import resolve_device
-from repro_torch.configs import internvl2_2b
+from repro_torch.configs import internvl2_2b, jamba_v0_1_52b, rwkv6_7b
+from repro_torch.convert import params_from_jax
 from repro_torch.kernels import packed_flash_attention as pfa
 from repro_torch.models import mllm, model
 from repro_torch.train import step
@@ -25,15 +27,20 @@ def _no_card():
 
 
 @pytest.mark.parametrize("entry", ["mllm.init", "model.init", "as_tensors",
-                                   "resolve_device"])
+                                   "resolve_device", "model.init[rwkv6-7b]",
+                                   "model.init[jamba]", "params_from_jax"])
 def test_default_device_without_card_raises(entry):
     _no_card()
     tiny = internvl2_2b.CFG
+    jamba = dataclasses.replace(jamba_v0_1_52b.CFG, ffn_pattern=("dense",))
     call = {
         "mllm.init": lambda: mllm.init(tiny),
         "model.init": lambda: model.init(internvl2_2b.ENCODER),
         "as_tensors": lambda: step.as_tensors({"x": [[1.0]]}),
         "resolve_device": lambda: resolve_device("cuda"),
+        "model.init[rwkv6-7b]": lambda: model.init(rwkv6_7b.CFG),
+        "model.init[jamba]": lambda: model.init(jamba),
+        "params_from_jax": lambda: params_from_jax({"blocks": {}}, rwkv6_7b.CFG),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         call()

@@ -158,8 +158,9 @@ def test_model_forward(kind):
 
 
 def test_unported_layers_raise():
-    _, cfg = _cfgs(layer_pattern=("attention", "mamba"))
-    with pytest.raises(NotImplementedError):
+    _, cfg = _cfgs(layer_pattern=("attention", "mamba"), ffn_pattern=("dense", "moe"),
+                   n_experts=4, top_k=2)
+    with pytest.raises(NotImplementedError, match="dense FFNs"):
         model.init(cfg, device="cpu")
 
 
