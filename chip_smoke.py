@@ -10,8 +10,11 @@ Phases, each reported on its own lines:
                 and prints the ``-Xptxas -v`` register / shared-memory lines;
   3. compare  — each kernel against its plain PyTorch version on the card:
                 K1 forward and K2/K3 gradients at the three attention shapes of
-                the paths (bf16) and at small fp32 cases (prime length, window,
-                G = 4, rows masked everywhere); K4–K7 outputs and gradients
+                the paths (bf16) and at small edge cases in bf16 (K2/K3 on the
+                tensor cores) and in fp32 (K2/K3 on the CUDA cores): prime
+                length, a window spanning tiles, G = 4, rows masked everywhere,
+                packed segments; K2/K3 run twice on each bf16 case must give
+                bitwise equal dq, dk, dv; K4–K7 outputs and gradients
                 (through their autograd Functions) at RWKV6-7B's and Jamba's
                 scan shapes (bf16) and at small fp32 cases (prime lengths,
                 several chunks, B > 1, a nonzero final-state cotangent for K7);
@@ -20,14 +23,18 @@ Phases, each reported on its own lines:
                 where one exists (SDPA for K1–K3; none computes a scan);
   5. train    — 3 AdamW steps of InternVL2-2B at full width and depth on the
                 paper's mixed data (items that fill the media window; see
-                ``rows``); launch counts of K1–K3 over those steps;
+                ``rows``); launch counts of K1–K3 over those steps, by route
+                (every K2/K3 launch must take the tensor cores); then one more
+                step under ``torch.profiler``: device time per kernel name for
+                K1–K3 and the device's idle share over the step;
   6. paths    — at full width and 2+2 layers, loss and gradients with the
                 kernels against the same step through the naive attention
                 (the oracle that materializes the scores);
   7. decoders — 3 AdamW steps each of RWKV6-7B and Jamba-v0.1 (dense FFNs)
                 at full width, depth cut to 8 layers, on rows packed by
                 ``pack_items`` from the mixed data; launch counts of K4–K7 and
-                of K1–K3 at Jamba's attention shape per step;
+                of K1–K3 at Jamba's attention shape per step (K2/K3 on the
+                tensor cores);
   8. ssm paths— at full width and 2 layers, each decoder with the scan
                 kernels against the naive scans (Python loops over time);
   9. summary  — one JSON line of the kernels, the card line, then the result.
@@ -64,6 +71,9 @@ REPLACES = {"K1": "src/repro/kernels/packed_flash_attention.py:59",
             "K6": "src/repro/kernels/rwkv6_scan.py:43",
             "K7": "src/repro/kernels/rwkv6_scan.py:73"}
 COUNTER = {"K1": "fwd", "K2": "bwd_dq", "K3": "bwd_dkv"}
+# Kernel-name fragments of K1-K3 in a profiler trace (K2/K3: tensor-core and
+# CUDA-core kernels)
+TRACE_NAME = {"K1": "fwd_kernel", "K2": "bwd_dq", "K3": "bwd_dkv"}
 SCAN_NAME = {"K4": "mamba_fwd", "K5": "mamba_bwd", "K6": "wkv6_fwd",
              "K7": "wkv6_bwd"}
 # The decoders' training rows: 2 microbatches x 2 rows x 4096 tokens, items
@@ -234,34 +244,65 @@ def main() -> int:
     }
     masked = seg_rows(200, [200])
     masked[:, :40] = 7                              # 40 rows attend nothing
+    # rows of several packed segments (ids 1..5) and a padded tail (0): many
+    # 64 x 64 tiles hold no attending pair, so the kernels' segment skip runs
+    packed = torch.zeros(2, 300, dtype=torch.int32)
+    for row, cuts in enumerate([(0, 50, 120, 121, 260, 300), (0, 64, 128, 200, 290)]):
+        for i in range(len(cuts) - 1):
+            packed[row, cuts[i]:cuts[i + 1]] = i + 1
     cases = {f"{n}/bf16": make_case(sh["B"], sh["KH"], sh["G"], sh["S"], sh["D"],
                                     torch.bfloat16, sh["causal"], 0, sh["seg"])
              for n, sh in path_shapes.items()}
-    cases.update({
-        "prime_S257/f32": make_case(1, 2, 2, 257, 64, torch.float32, True, 0,
-                                    seg_rows(257, [257])),
-        "window100_S300_D128/f32": make_case(1, 2, 1, 300, 128, torch.float32,
-                                             True, 100, seg_rows(300, [250])),
-        "G4_S200_bidir/f32": make_case(2, 1, 4, 200, 64, torch.float32, False,
-                                       0, seg_rows(200, [150, 60])),
-        "masked_rows/f32": make_case(1, 2, 2, 200, 64, torch.float32, True, 0,
-                                     masked, seg_rows(200, [200])),
-    })
+    for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        cases.update({
+            f"prime_S257/{tag}": make_case(1, 2, 2, 257, 64, dt, True, 0,
+                                           seg_rows(257, [257])),
+            f"window100_S300_D128/{tag}": make_case(1, 2, 1, 300, 128, dt, True, 100,
+                                                    seg_rows(300, [250])),
+            f"G4_S200_bidir/{tag}": make_case(2, 1, 4, 200, 64, dt, False, 0,
+                                              seg_rows(200, [150, 60])),
+            f"masked_rows/{tag}": make_case(1, 2, 2, 200, 64, dt, True, 0, masked,
+                                            seg_rows(200, [200])),
+            f"masked_rows_D128/{tag}": make_case(1, 2, 2, 200, 128, dt, True, 0, masked,
+                                                 seg_rows(200, [200])),
+            f"packed_segments_D128/{tag}": make_case(2, 2, 2, 300, 128, dt, True, 0, packed),
+        })
+
+    def backward_twice(c):
+        """K2 and K3 run twice on the same inputs: (dq, dk, dv) of each run."""
+        o, lse = pfa.flash_fwd(c["q"], c["k"], c["v"], c["seg_q"], c["seg_k"],
+                               c["causal"], c["window"], 64, 64)
+        delta = torch.sum(c["do"].float() * o.float(), -1).contiguous()
+        args = (c["q"], c["k"], c["v"], c["seg_q"], c["seg_k"], c["do"], lse, delta,
+                c["causal"], c["window"], 64, 64)
+        return [(pfa.flash_bwd_dq(*args), *pfa.flash_bwd_dkv(*args)) for _ in range(2)]
+
     max_err = {}
     for cname, c in cases.items():
         errs = run_pair(c)
         check_pair(cname, errs, c["q"].dtype)
-        if cname.endswith("/bf16"):
-            shape = cname.split("/")[0]
+        shape = cname.split("/")[0]
+        if shape in path_shapes:
             max_err[("K1", shape)] = errs["o"][0]
             max_err[("K2", shape)] = errs["dq"][0]
             max_err[("K3", shape)] = max(errs["dk"][0], errs["dv"][0])
-    if "masked_rows/f32" in cases:
-        c = cases["masked_rows/f32"]
+        if c["q"].dtype == torch.bfloat16:
+            first, second = backward_twice(c)
+            same = all(torch.equal(a, b) for a, b in zip(first, second))
+            log(f"[compare] {cname}: K2/K3 twice on the same inputs: "
+                f"{'bitwise equal' if same else 'DIFFER'}")
+            if not same:
+                raise SystemExit(f"K2/K3 are not deterministic: {cname}")
+    for tag in ("f32", "bf16"):
+        c = cases[f"masked_rows/{tag}"]
         o, lse = pfa.flash_fwd(c["q"], c["k"], c["v"], c["seg_q"], c["seg_k"],
                                True, 0, 64, 64)
         if not (torch.all(o[..., :40, :] == 0) and torch.all(lse[..., :40] == pfa.NEG_INF)):
             raise SystemExit("rows masked everywhere must give o = 0, lse = -1e30")
+        dq = backward_twice(c)[0][0]
+        if not torch.all(dq[..., :40, :] == 0):
+            raise SystemExit(f"rows masked everywhere must give dq = 0 ({tag})")
+    log(f"[compare] launches of the comparisons, by route: {dict(pfa.LAUNCHES)}")
     del cases
     torch.cuda.empty_cache()
 
@@ -413,8 +454,9 @@ def main() -> int:
                               "SDPA backward (fwd+bwd - fwd), dq and dk/dv together"))
             r = timing[(kn, shape)]
             log(f"[timing] {kn} {shape} (B={B} KH={KH} G={G} S={S} D={D} bf16 "
-                f"causal={causal}): kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
-                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+                f"causal={causal}, {pfa.route_of(COUNTER[kn], q.dtype)}): kernel "
+                f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}, {100 * r['bound_ms'] / r['ms']:.1f} % of it), "
                 f"{ops_ / r['ms'] / 1e9:.1f} TFLOP/s over the kept pairs")
         timing[("K1", shape)]["library_nomask_ms"] = lib_nomask
         full = bench.attention_flops(B, H, S, D, causal=causal)
@@ -484,6 +526,79 @@ def main() -> int:
     log(f"[timing] the reference's WKV count (bench.rwkv6_flops, 6 per state element "
         f"and step) would be {bench.rwkv6_flops(*dims_r) / 1e9:.2f} GFLOP for K6")
 
+    def check_routes(tag):
+        """Fail unless every K2/K3 launch since the last reset took the
+        tensor cores (the training paths run in bf16)."""
+        off = {key: n for key, n in pfa.LAUNCHES.items()
+               if key[0] != "fwd" and key[1] != pfa.TENSOR_CORE}
+        if off:
+            raise SystemExit(f"{tag}: K2/K3 launches off the tensor cores: {off}")
+        log(f"[{tag}] every K2/K3 launch took the tensor cores")
+
+    def profile_step(fn, tag, shapes, step_s):
+        """Run ``fn`` (one train step) under torch.profiler and print the
+        device time per kernel name for K1-K3 at each of ``shapes`` (beside
+        the isolated time, phase 4), the ten kernels with the most device time, and
+        the device's idle share: over the traced step (whose host side the
+        profiler slows) and against ``step_s``, the untraced step's seconds.
+        A trace with no device events prints "not measured"."""
+        from torch.profiler import ProfilerActivity, profile, record_function
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with record_function("train_step"):
+                fn()
+                torch.cuda.synchronize()
+        events = list(prof.events())
+        window = [e for e in events if e.name == "train_step"]
+        # device activity: kernels, copies, sets; not the annotation's own
+        # device-side span, which covers the whole window
+        dev_events = [e for e in events
+                      if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+                      and not getattr(e, "is_user_annotation", False)
+                      and e.name != "train_step"]
+        if not window or not dev_events:
+            log(f"[profile] {tag}: device time per kernel and idle share: not measured "
+                f"(the trace holds {len(dev_events)} device events)")
+            return
+        t0, t1 = window[0].time_range.start, window[0].time_range.end
+        per_name = {}
+        spans = []
+        for e in dev_events:
+            a, b = max(e.time_range.start, t0), min(e.time_range.end, t1)
+            if b <= a:
+                continue
+            spans.append((a, b))
+            tot, n = per_name.get(e.name, (0.0, 0))
+            per_name[e.name] = (tot + (e.time_range.end - e.time_range.start), n + 1)
+        busy, end = 0.0, t0                 # union of the device intervals
+        for a, b in sorted(spans):
+            if b > end:
+                busy += b - max(a, end)
+                end = b
+        span_us = t1 - t0
+        log(f"[profile] {tag}: one traced step {span_us / 1e3:.1f} ms, device busy "
+            f"{busy / 1e3:.1f} ms, idle share {1 - busy / span_us:.3f}; against the "
+            f"untraced step of {step_s * 1e3:.1f} ms, idle share "
+            f"{1 - busy / 1e6 / step_s:.3f}; {sum(n for _, n in per_name.values())} "
+            f"device events, {len(per_name)} kernel names")
+        for kn, frag in TRACE_NAME.items():
+            for shape in shapes:
+                D = path_shapes[shape]["D"]
+                hits = [(nm, tot, n) for nm, (tot, n) in per_name.items()
+                        if frag in nm and f"{D}>" in nm]
+                tot = sum(t for _, t, _ in hits)
+                n = sum(c for _, _, c in hits)
+                iso = timing[(kn, shape)]["ms"]
+                if n:
+                    log(f"[profile] {tag} {kn} {shape}: {tot / 1e3:.3f} ms device time over "
+                        f"{n} launches in the step, {tot / 1e3 / n:.3f} ms per launch "
+                        f"(isolated {iso:.3f} ms); {[nm[:60] for nm, _, _ in hits]}")
+                else:
+                    log(f"[profile] {tag} {kn} {shape}: no launch found in the trace")
+        top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:10]
+        for nm, (tot, n) in top:
+            log(f"[profile] {tag} top: {tot / 1e3:9.3f} ms {n:5d} x {nm[:110]}")
+
     # 5. train: InternVL2-2B, full width and depth ------------------------- #
     cfg = internvl2_2b.CFG
     ds = MixedDataset("mixed", seed=0, tokens_per_media_item=1024)
@@ -536,20 +651,26 @@ def main() -> int:
             f"(rows: {b['text_mask'].sum(-1).tolist()} text)")
         if not math.isfinite(loss):
             raise SystemExit("non-finite loss")
-    # launches per kernel and per path shape, over the 3 steps
+    # launches per kernel and per path shape, over the 3 steps, on the route
+    # each kernel must take in bf16 (K2/K3 on the tensor cores)
     mllm_shapes = ("encoder", "llm")
-    launches = {(kn, shape): pfa.LAUNCHES[(COUNTER[kn], path_shapes[shape]["D"],
-                                           path_shapes[shape]["causal"])]
+    launches = {(kn, shape): pfa.LAUNCHES[(COUNTER[kn], pfa.route_of(COUNTER[kn], torch.bfloat16),
+                                           path_shapes[shape]["D"], path_shapes[shape]["causal"])]
                 for shape in mllm_shapes for kn in COUNTER}
     peak = torch.cuda.max_memory_allocated()
     for shape in mllm_shapes:
         n = [launches[(kn, shape)] for kn in COUNTER]
         log(f"[train] launches over 3 steps, {shape}: K1 {n[0]}, K2 {n[1]}, K3 {n[2]} "
             f"(per step {n[0] / 3:g}/{n[1] / 3:g}/{n[2] / 3:g})")
-    log(f"[train] all launches: {dict(pfa.LAUNCHES)}; "
+    log(f"[train] all launches (kernel, route, head_dim, causal): {dict(pfa.LAUNCHES)}; "
         f"max_memory_allocated {peak / 2**30:.2f} GiB")
     if min(launches.values()) == 0:
         raise SystemExit(f"a kernel was not launched on the main path: {launches}")
+    check_routes("InternVL2-2B")
+
+    # one more step under the profiler: device time per kernel name, idle share
+    profile_step(lambda: train_step(params, opt, batches[0], 3e-4), "InternVL2-2B",
+                 mllm_shapes, sum(st["seconds"] for st in steps[1:]) / len(steps[1:]))
     del params, opt, batches, train_step, b
     torch.cuda.empty_cache()
 
@@ -633,8 +754,10 @@ def main() -> int:
                   ("K6", name): rwkv6_scan.LAUNCHES["fwd"],
                   ("K7", name): rwkv6_scan.LAUNCHES["bwd"]}
         for kn in COUNTER:
-            counts[(kn, name)] = sum(n for (kk, _, _), n in pfa.LAUNCHES.items()
-                                     if kk == COUNTER[kn])
+            counts[(kn, name)] = sum(n for (kk, route, _, _), n in pfa.LAUNCHES.items()
+                                     if kk == COUNTER[kn]
+                                     and route == pfa.route_of(kk, torch.bfloat16))
+        check_routes(f"decoders {name}")
         log(f"[decoders] {name}: launches over 3 steps " + ", ".join(
             f"{kn} {n} ({n / 3:g}/step)" for (kn, _), n in counts.items()) +
             f"; max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")

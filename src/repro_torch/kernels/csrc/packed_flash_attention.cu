@@ -1,36 +1,63 @@
 // Packed flash attention for Hopper (sm_90a): forward (K1), dq (K2), dk/dv (K3).
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/packed_flash_attention.py:
-//   K1 fwd_kernel     <- _fwd_kernel     (online-softmax GQA forward, emits o and lse)
-//   K2 bwd_dq_kernel  <- _bwd_dq_kernel  (dq = sum_j ds_ij k_j)
-//   K3 bwd_dkv_kernel <- _bwd_dkv_kernel (dk_j = sum_i ds_ij^T q_i, dv_j = sum_i p_ij^T do_i,
-//                                        summed over the G query heads of a kv head)
+//   K1 fwd_kernel                      <- _fwd_kernel     (online-softmax GQA forward, o and lse)
+//   K2 bwd_dq_tc_kernel, bwd_dq_kernel  <- _bwd_dq_kernel  (dq = sum_j ds_ij k_j)
+//   K3 bwd_dkv_tc_kernel, bwd_dkv_kernel <- _bwd_dkv_kernel (dk_j = sum_i ds_ij^T q_i,
+//                                        dv_j = sum_i p_ij^T do_i, summed over the G query
+//                                        heads of a kv head)
 //
 // Semantics are the TPU kernels': q (B, KH, G, Sq, D), k and v (B, KH, Sk, D), all
 // contiguous, in bf16 or fp32; segment ids (B, S) int32.  The mask is
 // causal AND (qpos - kpos < window when window > 0) AND seg_q == seg_k.
 // Scores, running max / sum, accumulators and gradients are fp32; masked scores
 // hold the fp32 sentinel -1e30 and p is zeroed by an explicit mask select, so a
-// row masked everywhere yields o = 0 and lse = -1e30 (never an average of v).
-// The ragged edge (S not a multiple of the tile) is masked here instead of padded:
-// rows and keys past S are loaded as zeros and never attend, which equals the
-// pad-to-block semantics of kernels/blocking.py (seg -1, padded rows sliced off).
-//
-// Design.  The TPU grid's sequential kv axis becomes a loop inside one block:
-//   K1, K2: one block per (b, query head, 64-row q tile), looping over 64-key tiles;
-//   K3:     one block per (b, kv head, 64-key tile), looping over the G query heads
-//           and the q tiles, so the G-reduction stays inside the block, no atomics.
-// Causal and window masks bound the tile loops, so fully masked tiles are skipped
-// (exact: a fully masked tile leaves m, l and acc unchanged).  Delta = rowsum(do*o)
-// is computed outside the kernel, as the TPU wrapper does.
+// row masked everywhere yields o = 0 and lse = -1e30 (never an average of v) and
+// gradients of exactly 0.  The ragged edge (S not a multiple of the tile) is masked
+// here instead of padded: rows and keys past S are loaded as zeros and never attend,
+// which equals the pad-to-block semantics of kernels/blocking.py (seg -1, padded rows
+// sliced off).  Delta = rowsum(do * o) is computed outside the kernels, as the TPU
+// wrapper does.  No kernel uses atomics: every output element is written once, by one
+// block, so the results are bitwise deterministic.
 //
 // Bound on the H100.  At the main path's shapes (S = 1280..4096, D = 64..128) the
-// work is ~S^2 D FLOPs over ~S D bytes, far above the card's ridge of ~295 FLOP per
-// byte, so the bound is the tensor cores' 989 TFLOP/s (bf16).  This first version
-// does its products as fp32 FMAs on the CUDA cores from shared-memory tiles
-// (16x16 threads, each owning a strided 4x4 (or 4xD/16) register micro-tile, bank
-// conflicts avoided by row padding), so it cannot approach that bound; moving the
-// products onto wgmma with TMA-fed tiles is the next step.
+// work is ~S^2 D operations over ~S D bytes, far above the card's ridge of ~295
+// operations per byte, so every kernel here is bound by the tensor cores' 989 TFLOP/s
+// (bf16) over the (q, k) pairs the mask keeps.
+//
+// K2 and K3 in bf16 (the main path's type) run on the tensor cores.  One warpgroup per
+// block; 64 x 64 tiles held in shared memory in wgmma's 128-byte-swizzled layout.
+//   K2: one block per (b, kv head, 64-row q tile).  For each of the G query heads it
+//       holds the Q and dO tiles and streams K and V tiles through a double-buffered
+//       cp.async ring; per key tile S = Q K^T and dP = dO V^T are wgmma m64n64k16 with
+//       both operands in shared memory (K-major), p = exp(S scale - lse) and
+//       ds = p (dP - delta) scale are formed in fp32 registers, rounded to bf16 and fed
+//       as register A fragments to dQ += dS K (K in shared memory read MN-major, so no
+//       transpose).
+//   K3: one block per (b, kv head, 64-key tile).  It holds K and V and streams Q, dO,
+//       lse and delta through the ring over the G heads and the q tiles the causal and
+//       window bounds allow, in the transposed form S^T = K Q^T, dP^T = V dO^T: P^T and
+//       dS^T are then register A operands of dV += P^T dO and dK += dS^T Q.  dk and dv
+//       stay in registers over all heads and tiles and are written once.
+//   Tiles are skipped by the causal and window bounds and, after their segment ids are
+//   loaded, by a block-wide vote when no (q, k) pair of the tile attends (exact: such
+//   a tile adds 0), which drops the pairs that packed rows and padded tails never use.
+//   A tile wholly in range, below the diagonal and inside the window takes its mask
+//   from the segment ids alone.  One barrier a tile: the next tile's copies are issued
+//   right after it, into the stage every thread has finished with.
+//   p and ds are rounded to bf16 before the second products, as FlashAttention does;
+//   the first products take the stored bf16 operands with fp32 accumulation.
+//   What the design leaves on the table: the kernels are bound by the instructions
+//   around the products (mask, exponentials, barriers) more than by the products.  One
+//   warpgroup does its own loads (no producer warp, no TMA) and waits for each product
+//   before the softmax step, so overlap comes only from the 2-3 blocks an SM holds.
+//
+// K1 in both types, and K2 and K3 in fp32, are the first versions: fp32 FMAs on the
+// CUDA cores from shared-memory tiles (16x16 threads, each owning a strided 4x4 (or
+// 4xD/16) register micro-tile, bank conflicts avoided by row padding).  fp32 stays off
+// the tensor cores on purpose: TF32 would break the fp32 tolerance of 1e-4.  K1 on
+// wgmma is the next step.
+#include <stdint.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -263,7 +290,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
 }
 
 // --------------------------------------------------------------------------- //
-// K2: dq.  grid (n q tiles, B * H); loops over key tiles.
+// K2 (fp32): dq.  grid (n q tiles, B * H); loops over key tiles.
 // --------------------------------------------------------------------------- //
 template <typename T, int D>
 __global__ void __launch_bounds__(NT)
@@ -382,7 +409,7 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
 }
 
 // --------------------------------------------------------------------------- //
-// K3: dk, dv.  grid (n key tiles, B * KH); loops over the G heads and q tiles.
+// K3 (fp32): dk, dv.  grid (n key tiles, B * KH); loops over the G heads and q tiles.
 // --------------------------------------------------------------------------- //
 template <typename T, int D>
 __global__ void __launch_bounds__(NT)
@@ -513,6 +540,484 @@ bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   }
 }
 
+// --------------------------------------------------------------------------- //
+// K2 and K3 for bf16 on the tensor cores: wgmma, one warpgroup (128 threads) a block.
+// --------------------------------------------------------------------------- //
+constexpr int WG = 128;                   // threads of the tensor-core kernels
+constexpr int SW_ROW = 128;               // bytes of one 128-byte-swizzled row: 64 bf16
+constexpr int SW_SUB = 64 * SW_ROW;       // one 64-row x 64-column sub-tile
+constexpr float LOG2E = 1.4426950408889634f;
+
+// A 64 x D bf16 tile in shared memory is D / 64 sub-tiles of 64 rows x 128 bytes; the
+// 16-byte chunk c of row r sits at chunk (c ^ r) % 8 of its row, the 128-byte swizzle
+// that wgmma's descriptors name.  The same bytes serve as a K-major operand (rows are M
+// or N, columns K) and as an MN-major one (rows are K, columns N), so no tile is ever
+// transposed.
+template <int D>
+__host__ __device__ constexpr uint32_t tile_bytes() { return 64 * D * 2; }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Byte offset of the 16-byte chunk c (0 .. D/8 - 1) of row r in a tile.
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return (c >> 3) * SW_SUB + r * SW_ROW + (((c & 7) ^ (r & 7)) << 4);
+}
+
+// Rows [row0, row0 + 64) of a row-major (S, D) bf16 matrix into the tile at `dst`, by
+// 16-byte cp.async copies (8 neighbouring threads read one 128-byte row segment); rows
+// past S are filled with zeros.
+template <int D>
+__device__ __forceinline__ void tile_async(uint32_t dst, const __nv_bfloat16* src, int row0,
+                                           int S) {
+  constexpr int CPR = D / 8;              // 16-byte chunks per row
+#pragma unroll
+  for (int it = 0; it < 64 * CPR / WG; ++it) {
+    const int i = it * WG + threadIdx.x;
+    const int r = i / CPR, c = i % CPR;
+    const bool ok = row0 + r < S;
+    const __nv_bfloat16* g = src + (size_t)(ok ? row0 + r : 0) * D + c * 8;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(dst + swz(r, c)), "l"(g), "r"(ok ? 16 : 0) : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+// Orders this thread's generic-proxy writes to shared memory (cp.async, plain stores)
+// before the async-proxy reads of wgmma that follow the next barrier.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// wgmma shared-memory descriptor with the 128-byte swizzle: start address, LBO, SBO =
+// 1024 bytes between 8-row groups.  K-major operands ignore LBO; MN-major ones take it
+// as the distance between 64-column sub-tiles.  Tiles are 1024-byte aligned, so the
+// base-offset field stays 0.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+// K-major operand: columns [16 kk, 16 kk + 16) of a tile, all 64 rows.
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
+  return desc(tile + (kk >> 2) * SW_SUB + (kk & 3) * 32, 16);
+}
+// MN-major operand: rows [16 kk, 16 kk + 16) of a tile, all its columns.
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
+  return desc(tile + kk * 16 * SW_ROW, SW_SUB);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// The compiler sees a wgmma as done when it is issued.  Pinning its accumulators and A
+// fragments after the wait keeps their registers from being read or reused before it.
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// D += A B for one k16 slice, D (64 x 64) in fp32 registers, A and B bf16 K-major in
+// shared memory; scale_d = 0 overwrites D.
+__device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D += A B for one k16 slice, A (64 x 16) bf16 in registers, B bf16 MN-major in shared
+// memory (its transpose flag set); D is 64 x 64 or 64 x 128 fp32 in registers.
+__device__ __forceinline__ void mma_rs_tb(float (&d)[32], uint32_t a0, uint32_t a1, uint32_t a2,
+                                          uint32_t a3, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void mma_rs_tb(float (&d)[64], uint32_t a0, uint32_t a1, uint32_t a2,
+                                          uint32_t a3, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(scale_d));
+}
+
+// Accumulator layout of wgmma m64nNk16 (fp32): thread t = 32 w + l holds, for each
+// 8-column block j, d[4j + h] at row 16 w + l / 4 + 8 (h / 2), column 8 j + 2 (l % 4)
+// + h % 2.  For a 64 x 64 accumulator the 32 elements of the 128 threads partition the
+// tile; bit 4j + h of the result says whether that element attends.  Rows are queries
+// and columns keys (ROWS_ARE_Q, K2) or the transpose (K3).
+template <bool ROWS_ARE_Q>
+__device__ __forceinline__ uint32_t tile_mask_bits(int row0, int col0, const int* seg_rows,
+                                                   const int* seg_cols, int Sq, int Sk,
+                                                   int causal, int window) {
+  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
+  const int q0 = ROWS_ARE_Q ? row0 : col0, k0 = ROWS_ARE_Q ? col0 : row0;
+  // A tile wholly in range, below the causal diagonal and inside the window (the same
+  // answer for every thread) is masked by the segment ids alone.
+  const bool interior = q0 + BQ <= Sq && k0 + BK <= Sk && (!causal || k0 + BK - 1 <= q0) &&
+                        (window <= 0 || q0 + BQ - 1 - k0 < window);
+  uint32_t bits = 0;
+  if (interior) {
+    const int r = 16 * w + (l >> 2);
+    const int s0 = seg_rows[r], s1 = seg_rows[r + 8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int sc = seg_cols[8 * j + 2 * (l & 3) + e];
+        bits |= ((uint32_t)(s0 == sc) << (4 * j + e)) | ((uint32_t)(s1 == sc) << (4 * j + 2 + e));
+      }
+    return bits;
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      const int r = 16 * w + (l >> 2) + 8 * (h >> 1), c = 8 * j + 2 * (l & 3) + (h & 1);
+      const bool ok =
+          ROWS_ARE_Q
+              ? attend(row0 + r, col0 + c, seg_rows[r], seg_cols[c], Sq, Sk, causal, window)
+              : attend(col0 + c, row0 + r, seg_cols[c], seg_rows[r], Sq, Sk, causal, window);
+      bits |= (uint32_t)ok << (4 * j + h);
+    }
+  return bits;
+}
+
+// Stores a 64 x D fp32 accumulator as bf16 rows [row0, row0 + 64) of `dst` (row-major,
+// rows past S skipped).
+template <int D>
+__device__ __forceinline__ void store_acc(__nv_bfloat16* dst, const float (&acc)[D / 2],
+                                          int row0, int S) {
+  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
+  const int r = row0 + 16 * w + (l >> 2);
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int c = 8 * j + 2 * (l & 3);
+    if (r < S)
+      *reinterpret_cast<uint32_t*>(dst + (size_t)r * D + c) = pack_bf16(acc[4 * j], acc[4 * j + 1]);
+    if (r + 8 < S)
+      *reinterpret_cast<uint32_t*>(dst + (size_t)(r + 8) * D + c) =
+          pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
+
+template <int D>
+constexpr size_t dq_tc_smem() {             // Q, dO, 2 stages of K and V; lse, delta, ids
+  return 1024 + 6 * tile_bytes<D>() + sizeof(float) * 2 * BQ + sizeof(int) * (BQ + 2 * BK);
+}
+template <int D>
+constexpr size_t dkv_tc_smem() {            // K, V, 2 stages of Q and dO, lse, delta, ids
+  return 1024 + 6 * tile_bytes<D>() + sizeof(float) * 4 * BQ + sizeof(int) * (2 * BQ + BK);
+}
+static_assert(dq_tc_smem<128>() <= 232448 && dkv_tc_smem<128>() <= 232448,
+              "shared memory of one block");
+
+// The first 1024-byte boundary in dynamic shared memory (the swizzle's period).
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+// --------------------------------------------------------------------------- //
+// K2 (bf16): dq.  grid (n q tiles, B * KH); loops over the G heads of a kv head and,
+// for each, over the key tiles, K and V double-buffered by cp.async.
+// --------------------------------------------------------------------------- //
+template <int D>
+__global__ void __launch_bounds__(WG)
+bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                 const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg_q,
+                 const int* __restrict__ seg_k, const __nv_bfloat16* __restrict__ dout,
+                 const float* __restrict__ lse, const float* __restrict__ delta,
+                 __nv_bfloat16* __restrict__ dq, int KH, int G, int Sq, int Sk, int causal,
+                 int window, float scale) {
+  constexpr uint32_t TB = tile_bytes<D>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  const uint32_t sQ = smem_u32(sm), sDO = sQ + TB;
+  const uint32_t sKV = sQ + 2 * TB;         // stage s: K at sKV + 2 s TB, V at sKV + (2 s + 1) TB
+  float* sLse = reinterpret_cast<float*>(sm + 6 * TB);   // lse * log2(e)
+  float* sDelta = sLse + BQ;
+  int* sSq = reinterpret_cast<int*>(sDelta + BQ);
+  int* sSk = sSq + BQ;                      // [2][BK]
+
+  const int tid = threadIdx.x, w = tid >> 5, l = tid & 31;
+  const int nq = (Sq + BQ - 1) / BQ;
+  const int q0 = (nq - 1 - (int)blockIdx.x) * BQ;        // longest causal rows first
+  const int bkv = blockIdx.y, b = bkv / KH;
+  const __nv_bfloat16* kb = k + (size_t)bkv * Sk * D;
+  const __nv_bfloat16* vb = v + (size_t)bkv * Sk * D;
+  const float scale_log2 = scale * LOG2E;
+  int kt_begin, kt_end;
+  key_tile_range(q0, Sq, Sk, causal, window, &kt_begin, &kt_end);
+
+  auto issue_kv = [&](int kt, int st) {
+    tile_async<D>(sKV + 2 * st * TB, kb, kt * BK, Sk);
+    tile_async<D>(sKV + (2 * st + 1) * TB, vb, kt * BK, Sk);
+    load_ids(sSk + BK * st, seg_k + (size_t)b * Sk, kt * BK, Sk);
+  };
+
+  for (int g = 0; g < G; ++g) {
+    const size_t bh = (size_t)bkv * G + g;
+    __syncthreads();                        // the previous head's tiles are consumed
+    tile_async<D>(sQ, q + bh * Sq * D, q0, Sq);
+    tile_async<D>(sDO, dout + bh * Sq * D, q0, Sq);
+    if (tid < BQ) {
+      const int i = q0 + tid;
+      sLse[tid] = i < Sq ? lse[bh * Sq + i] * LOG2E : 0.f;
+      sDelta[tid] = i < Sq ? delta[bh * Sq + i] : 0.f;
+      sSq[tid] = i < Sq ? seg_q[(size_t)b * Sq + i] : -1;
+    }
+    if (kt_begin < kt_end) issue_kv(kt_begin, 0);
+    cp_commit();
+
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+    for (int kt = kt_begin; kt < kt_end; ++kt) {
+      const int st = (kt - kt_begin) & 1;
+      cp_wait<0>();
+      fence_async_smem();
+      // Tile kt has landed, and every thread is done with tile kt - 1: its stage can
+      // take tile kt + 1, which loads while this one computes.
+      __syncthreads();
+      if (kt + 1 < kt_end) {
+        issue_kv(kt + 1, st ^ 1);
+        cp_commit();
+      }
+      const uint32_t live = tile_mask_bits<true>(q0, kt * BK, sSq, sSk + BK * st, Sq, Sk,
+                                                 causal, window);
+      // A tile in which no (q, k) pair attends adds 0 to dq: the block skips it.
+      if (__syncthreads_or(live != 0)) {
+        const uint32_t sK = sKV + 2 * st * TB, sV = sK + TB;
+        float s[32], dp[32];
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) mma_ss(s, desc_k(sQ, kk), desc_k(sK, kk), kk);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) mma_ss(dp, desc_k(sDO, kk), desc_k(sV, kk), kk);
+        wg_commit();
+        wg_wait0();
+        pin(s);
+        pin(dp);
+        // ds = p (dp - delta) scale, p = exp(s scale - lse) where attended, else 0;
+        // rounded to bf16 as the A fragments of dq += ds k.
+        const int r0 = 16 * w + (l >> 2);
+        const float lse0 = sLse[r0], lse1 = sLse[r0 + 8];
+        const float del0 = sDelta[r0], del1 = sDelta[r0 + 8];
+        uint32_t a[16];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float ds[4];
+#pragma unroll
+          for (int h = 0; h < 4; ++h) {
+            const int e = 4 * j + h;
+            const float p =
+                (live >> e) & 1u ? exp2f(s[e] * scale_log2 - (h < 2 ? lse0 : lse1)) : 0.f;
+            ds[h] = p * (dp[e] - (h < 2 ? del0 : del1)) * scale;
+          }
+          a[2 * j] = pack_bf16(ds[0], ds[1]);
+          a[2 * j + 1] = pack_bf16(ds[2], ds[3]);
+        }
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          mma_rs_tb(acc, a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3],
+                    desc_mn(sK, kk), 1);
+        wg_commit();
+        wg_wait0();
+        pin(acc);
+        pin(a);
+      }
+    }
+    cp_wait<0>();                           // no copy outlives its head (empty key range)
+    store_acc<D>(dq + bh * Sq * D, acc, q0, Sq);
+  }
+}
+
+// --------------------------------------------------------------------------- //
+// K3 (bf16): dk, dv.  grid (n key tiles, B * KH); loops over the G heads and the q
+// tiles, Q and dO double-buffered by cp.async, in the transposed form
+// S^T = K Q^T, dP^T = V dO^T, so that P^T and dS^T are register A operands of
+// dv += P^T dO and dk += dS^T Q.
+// --------------------------------------------------------------------------- //
+template <int D>
+__global__ void __launch_bounds__(WG)
+bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg_q,
+                  const int* __restrict__ seg_k, const __nv_bfloat16* __restrict__ dout,
+                  const float* __restrict__ lse, const float* __restrict__ delta,
+                  __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int KH, int G,
+                  int Sq, int Sk, int causal, int window, float scale) {
+  constexpr uint32_t TB = tile_bytes<D>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  const uint32_t sK = smem_u32(sm), sV = sK + TB;
+  const uint32_t sQO = sK + 2 * TB;         // stage s: Q at sQO + 2 s TB, dO at sQO + (2 s + 1) TB
+  float* sLse = reinterpret_cast<float*>(sm + 6 * TB);   // [2][BQ], times log2(e)
+  float* sDelta = sLse + 2 * BQ;                          // [2][BQ]
+  int* sSq = reinterpret_cast<int*>(sDelta + 2 * BQ);     // [2][BQ]
+  int* sSk = sSq + 2 * BQ;
+
+  const int tid = threadIdx.x, l = tid & 31;
+  const int k0 = blockIdx.x * BK;
+  const int bkv = blockIdx.y, b = bkv / KH;
+  const float scale_log2 = scale * LOG2E;
+  int qt_begin, qt_end;
+  query_tile_range(k0, Sq, Sk, causal, window, &qt_begin, &qt_end);
+  const int nqt = max(qt_end - qt_begin, 0), n_tiles = G * nqt;
+
+  // tile t is head t / nqt, q tile qt_begin + t % nqt
+  auto issue_q = [&](int t, int st) {
+    const int q0 = (qt_begin + t % nqt) * BQ;
+    const size_t bh = (size_t)bkv * G + t / nqt;
+    tile_async<D>(sQO + 2 * st * TB, q + bh * Sq * D, q0, Sq);
+    tile_async<D>(sQO + (2 * st + 1) * TB, dout + bh * Sq * D, q0, Sq);
+    if (tid < BQ) {
+      const int i = q0 + tid;
+      sLse[BQ * st + tid] = i < Sq ? lse[bh * Sq + i] * LOG2E : 0.f;
+      sDelta[BQ * st + tid] = i < Sq ? delta[bh * Sq + i] : 0.f;
+      sSq[BQ * st + tid] = i < Sq ? seg_q[(size_t)b * Sq + i] : -1;
+    }
+  };
+
+  tile_async<D>(sK, k + (size_t)bkv * Sk * D, k0, Sk);
+  tile_async<D>(sV, v + (size_t)bkv * Sk * D, k0, Sk);
+  load_ids(sSk, seg_k + (size_t)b * Sk, k0, Sk);
+  if (n_tiles > 0) issue_q(0, 0);
+  cp_commit();
+
+  float gk[D / 2], gv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) gk[i] = gv[i] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t & 1;
+    cp_wait<0>();
+    fence_async_smem();
+    __syncthreads();                        // as in K2: tile t landed, tile t - 1 consumed
+    if (t + 1 < n_tiles) {
+      issue_q(t + 1, st ^ 1);
+      cp_commit();
+    }
+    const int q0 = (qt_begin + t % nqt) * BQ;
+    const uint32_t live = tile_mask_bits<false>(k0, q0, sSk, sSq + BQ * st, Sq, Sk, causal,
+                                                window);
+    if (__syncthreads_or(live != 0)) {      // else the tile adds 0 to dk and dv
+      const uint32_t sQ = sQO + 2 * st * TB, sDO = sQ + TB;
+      const float* lse2 = sLse + BQ * st;
+      const float* del = sDelta + BQ * st;
+      float s[32], dp[32];
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) mma_ss(s, desc_k(sK, kk), desc_k(sQ, kk), kk);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) mma_ss(dp, desc_k(sV, kk), desc_k(sDO, kk), kk);
+      wg_commit();
+      wg_wait0();
+      pin(s);
+      pin(dp);
+      // rows are keys, columns queries: lse and delta vary along the columns
+      uint32_t pa[16], da[16];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 8 * j + 2 * (l & 3);
+        const float lse_c[2] = {lse2[c], lse2[c + 1]}, del_c[2] = {del[c], del[c + 1]};
+        float p[4], ds[4];
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          const int e = 4 * j + h;
+          p[h] = (live >> e) & 1u ? exp2f(s[e] * scale_log2 - lse_c[h & 1]) : 0.f;
+          ds[h] = p[h] * (dp[e] - del_c[h & 1]) * scale;
+        }
+        pa[2 * j] = pack_bf16(p[0], p[1]);
+        pa[2 * j + 1] = pack_bf16(p[2], p[3]);
+        da[2 * j] = pack_bf16(ds[0], ds[1]);
+        da[2 * j + 1] = pack_bf16(ds[2], ds[3]);
+      }
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        mma_rs_tb(gv, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
+                  desc_mn(sDO, kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        mma_rs_tb(gk, da[4 * kk], da[4 * kk + 1], da[4 * kk + 2], da[4 * kk + 3],
+                  desc_mn(sQ, kk), 1);
+      wg_commit();
+      wg_wait0();
+      pin(gv);
+      pin(gk);
+      pin(pa);
+      pin(da);
+    }
+  }
+  cp_wait<0>();                             // no copy outlives the block (empty q range)
+  store_acc<D>(dk + (size_t)bkv * Sk * D, gk, k0, Sk);
+  store_acc<D>(dv + (size_t)bkv * Sk * D, gv, k0, Sk);
+}
+
 // D^-0.5 rounded to fp32, as the TPU wrapper's `D ** -0.5` is.
 float softmax_scale(int D) { return (float)(1.0 / sqrt((double)D)); }
 
@@ -567,16 +1072,58 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const int* s
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_dq_tc(const void* q, const void* k, const void* v, const int* seg_q,
+                         const int* seg_k, const void* dout, const float* lse,
+                         const float* delta, void* dq, int B, int KH, int G, int Sq, int Sk,
+                         int causal, int window, cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  const size_t smem = dq_tc_smem<D>();
+  cudaError_t e = allow_smem(bwd_dq_tc_kernel<D>, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((Sq + BQ - 1) / BQ, B * KH);
+  bwd_dq_tc_kernel<D><<<grid, WG, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      seg_q, seg_k, static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq), KH, G,
+      Sq, Sk, causal, window, softmax_scale(D));
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v, const int* seg_q,
+                          const int* seg_k, const void* dout, const float* lse,
+                          const float* delta, void* dk, void* dv, int B, int KH, int G, int Sq,
+                          int Sk, int causal, int window, cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  const size_t smem = dkv_tc_smem<D>();
+  cudaError_t e = allow_smem(bwd_dkv_tc_kernel<D>, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((Sk + BK - 1) / BK, B * KH);
+  bwd_dkv_tc_kernel<D><<<grid, WG, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      seg_q, seg_k, static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), KH, G, Sq, Sk, causal, window, softmax_scale(D));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C interface (loaded with ctypes).  Pointers are device pointers, `stream` is
 // a cudaStream_t; `bf16` selects bf16 (1) or fp32 (0) q/k/v/o; D must be 64 or 128.
-// Each function returns the cudaError_t of its launch (0 on success).
+// The forward runs the CUDA-core kernel in both types; the backwards run the
+// tensor-core kernels in bf16 and the CUDA-core kernels in fp32.  Each function
+// returns the cudaError_t of its launch (0 on success).
 #define PFA_DISPATCH(CALL)                                                  \
   if (bf16 && D == 64) return (int)CALL(__nv_bfloat16, 64);                 \
   if (bf16 && D == 128) return (int)CALL(__nv_bfloat16, 128);               \
   if (!bf16 && D == 64) return (int)CALL(float, 64);                        \
   if (!bf16 && D == 128) return (int)CALL(float, 128);                      \
+  return (int)cudaErrorInvalidValue;
+#define PFA_DISPATCH_BWD(TC, FP32)                                          \
+  if (bf16 && D == 64) return (int)TC(64);                                  \
+  if (bf16 && D == 128) return (int)TC(128);                                \
+  if (!bf16 && D == 64) return (int)FP32(64);                               \
+  if (!bf16 && D == 128) return (int)FP32(128);                             \
   return (int)cudaErrorInvalidValue;
 
 extern "C" {
@@ -596,25 +1143,32 @@ int pfa_bwd_dq(const void* q, const void* k, const void* v, const void* seg_q,
                const void* seg_k, const void* dout, const void* lse, const void* delta,
                void* dq, int B, int KH, int G, int Sq, int Sk, int D, int causal, int window,
                int bf16, void* stream) {
-#define CALL(T, DD)                                                                       \
-  launch_dq<T, DD>(q, k, v, static_cast<const int*>(seg_q), static_cast<const int*>(seg_k), \
-                   dout, static_cast<const float*>(lse), static_cast<const float*>(delta),  \
-                   dq, B, KH, G, Sq, Sk, causal, window, static_cast<cudaStream_t>(stream))
-  PFA_DISPATCH(CALL)
-#undef CALL
+#define ARGS                                                                             \
+  q, k, v, static_cast<const int*>(seg_q), static_cast<const int*>(seg_k), dout,          \
+      static_cast<const float*>(lse), static_cast<const float*>(delta), dq, B, KH, G, Sq, \
+      Sk, causal, window, static_cast<cudaStream_t>(stream)
+#define TC(DD) launch_dq_tc<DD>(ARGS)
+#define FP32(DD) launch_dq<float, DD>(ARGS)
+  PFA_DISPATCH_BWD(TC, FP32)
+#undef FP32
+#undef TC
+#undef ARGS
 }
 
 int pfa_bwd_dkv(const void* q, const void* k, const void* v, const void* seg_q,
                 const void* seg_k, const void* dout, const void* lse, const void* delta,
                 void* dk, void* dv, int B, int KH, int G, int Sq, int Sk, int D, int causal,
                 int window, int bf16, void* stream) {
-#define CALL(T, DD)                                                                        \
-  launch_dkv<T, DD>(q, k, v, static_cast<const int*>(seg_q), static_cast<const int*>(seg_k), \
-                    dout, static_cast<const float*>(lse), static_cast<const float*>(delta),  \
-                    dk, dv, B, KH, G, Sq, Sk, causal, window,                                \
-                    static_cast<cudaStream_t>(stream))
-  PFA_DISPATCH(CALL)
-#undef CALL
+#define ARGS                                                                             \
+  q, k, v, static_cast<const int*>(seg_q), static_cast<const int*>(seg_k), dout,          \
+      static_cast<const float*>(lse), static_cast<const float*>(delta), dk, dv, B, KH, G, \
+      Sq, Sk, causal, window, static_cast<cudaStream_t>(stream)
+#define TC(DD) launch_dkv_tc<DD>(ARGS)
+#define FP32(DD) launch_dkv<float, DD>(ARGS)
+  PFA_DISPATCH_BWD(TC, FP32)
+#undef FP32
+#undef TC
+#undef ARGS
 }
 
 }  // extern "C"

@@ -11,8 +11,11 @@ scale ``D^-0.5``; a row masked everywhere gives o = 0 and lse = −1e30.
 Three wrappers, one per kernel: ``flash_fwd`` (K1), ``flash_bwd_dq`` (K2),
 ``flash_bwd_dkv`` (K3).  On a CUDA tensor each launches its kernel from
 ``csrc/packed_flash_attention.cu`` (built on first use, ``kernels/build.py``)
-and counts the launch in ``LAUNCHES``, keyed by kernel and by the shape's
-head_dim and causality; on a CPU tensor it runs its plain
+and counts the launch in ``LAUNCHES``, keyed by kernel, route, head_dim and
+causality.  The route follows the dtype, explicitly: K2 and K3 in bf16 run on
+the tensor cores (``"tensor_core"``, wgmma), in fp32 on the CUDA cores
+(``"cuda_core"``: TF32 would break the fp32 tolerance); K1 runs on the CUDA
+cores in both.  On a CPU tensor each wrapper runs its plain
 version (``fwd_plain``, ``bwd_dq_plain``, ``bwd_dkv_plain``), a blocked
 online softmax in torch with the same mask and sentinel.  The CUDA kernels
 tile at a fixed 64 × 64 and mask the ragged edge themselves; the plain
@@ -30,17 +33,25 @@ from repro_torch.kernels.blocking import PAD_SEGMENT, pad_axis, pick_block
 
 NEG_INF = -1e30
 
-# Kernel launches since the last reset: (kernel, head_dim, causal) -> count,
-# kernel one of "fwd" (K1), "bwd_dq" (K2), "bwd_dkv" (K3).
+# Kernel launches since the last reset: (kernel, route, head_dim, causal) ->
+# count, kernel one of "fwd" (K1), "bwd_dq" (K2), "bwd_dkv" (K3), route one of
+# TENSOR_CORE, CUDA_CORE (see ``route_of``).
 LAUNCHES: Counter = Counter()
+TENSOR_CORE, CUDA_CORE = "tensor_core", "cuda_core"
 
 
 def reset_launches() -> None:
     LAUNCHES.clear()
 
 
+def route_of(kernel: str, dtype) -> str:
+    """Which CUDA kernel a launch takes: the backwards in bf16 run on the
+    tensor cores, everything else on the CUDA cores."""
+    return TENSOR_CORE if kernel != "fwd" and dtype == torch.bfloat16 else CUDA_CORE
+
+
 def _count(kernel: str, q, causal) -> None:
-    LAUNCHES[(kernel, q.shape[-1], bool(causal))] += 1
+    LAUNCHES[(kernel, route_of(kernel, q.dtype), q.shape[-1], bool(causal))] += 1
 
 
 # --------------------------------------------------------------------------- #
@@ -152,8 +163,8 @@ def bwd_dkv_plain(q, k, v, seg_q, seg_k, dout, lse, delta, causal, window,
 # --------------------------------------------------------------------------- #
 # CUDA launches
 # --------------------------------------------------------------------------- #
-def _check(q, k, v, seg_q, seg_k, dout=None, lse=None, delta=None):
-    """Raise on what the CUDA kernels do not take."""
+def _check(kernel, q, k, v, seg_q, seg_k, dout=None, lse=None, delta=None):
+    """Raise on what the CUDA kernel of ``kernel`` does not take."""
     B, KH, G, Sq, D = q.shape
     Sk = k.shape[2]
     if D not in (64, 128):
@@ -180,8 +191,14 @@ def _check(q, k, v, seg_q, seg_k, dout=None, lse=None, delta=None):
     for t in (q, k, v, seg_q, seg_k, *rest):
         if t.device != q.device or not t.is_contiguous():
             raise ValueError("operands must be contiguous on q's CUDA device")
-    if B * KH * G > 65535:
-        raise ValueError("B * KH * G exceeds the grid's y limit")
+    tensor_core = route_of(kernel, q.dtype) == TENSOR_CORE
+    # grid y: B * KH for the tensor-core backwards and K3, B * KH * G otherwise
+    grid_y = B * KH if tensor_core or kernel == "bwd_dkv" else B * KH * G
+    if grid_y > 65535:
+        raise ValueError(f"{kernel}: grid y {grid_y} exceeds the limit of 65535")
+    if tensor_core and any(t.data_ptr() % 16 for t in (q, k, v, dout)):
+        raise ValueError("the tensor-core kernels copy 16-byte chunks: q, k, v and "
+                         "dout must start on a 16-byte boundary")
 
 
 def _dims(q, k, causal, window):
@@ -192,7 +209,7 @@ def _dims(q, k, causal, window):
 
 
 def _fwd_cuda(q, k, v, seg_q, seg_k, causal, window):
-    _check(q, k, v, seg_q, seg_k)
+    _check("fwd", q, k, v, seg_q, seg_k)
     lib = build.load("packed_flash_attention")
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
@@ -204,7 +221,7 @@ def _fwd_cuda(q, k, v, seg_q, seg_k, causal, window):
 
 
 def _bwd_dq_cuda(q, k, v, seg_q, seg_k, dout, lse, delta, causal, window):
-    _check(q, k, v, seg_q, seg_k, dout, lse, delta)
+    _check("bwd_dq", q, k, v, seg_q, seg_k, dout, lse, delta)
     lib = build.load("packed_flash_attention")
     dq = torch.empty_like(q)
     build.call(lib.pfa_bwd_dq, q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -215,7 +232,7 @@ def _bwd_dq_cuda(q, k, v, seg_q, seg_k, dout, lse, delta, causal, window):
 
 
 def _bwd_dkv_cuda(q, k, v, seg_q, seg_k, dout, lse, delta, causal, window):
-    _check(q, k, v, seg_q, seg_k, dout, lse, delta)
+    _check("bwd_dkv", q, k, v, seg_q, seg_k, dout, lse, delta)
     lib = build.load("packed_flash_attention")
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     build.call(lib.pfa_bwd_dkv, q.data_ptr(), k.data_ptr(), v.data_ptr(),

@@ -26,6 +26,45 @@ def _assert_close(outs, dt):
         assert d.norm().item() <= t_rel * b.norm().item()
 
 
+def _segments(kind, B, S):
+    """(seg_q, seg_k) on the card: "two" splits each row at S // 3; "masked"
+    gives the first 40 query rows an id no key has (rows masked everywhere);
+    "packed" packs segments 1..5 of uneven lengths and a padded tail."""
+    seg = torch.zeros(B, S, dtype=torch.int32)
+    if kind == "packed":
+        cuts = [0, 50, 120, 121, 260, S]
+        for i in range(5):
+            seg[:, cuts[i]:cuts[i + 1]] = i + 1
+        seg[1:, 290:] = 0
+    else:
+        seg[:, S // 3:] = 1
+    seg_q = seg.clone()
+    if kind == "masked":
+        seg[:] = 1
+        seg_q[:] = 1
+        seg_q[:, :40] = 7
+    return seg_q.cuda(), seg.cuda()
+
+
+# (B, KH, G, S, D, causal, window, segments): bf16 K2/K3 run on the tensor
+# cores, fp32 on the CUDA cores; both head dims, a prime length, a window
+# spanning tiles, G = 4 bidirectional, rows masked everywhere, packed rows
+CASES = [(1, 2, 2, 131, 64, True, 0, "two"),
+         (2, 2, 1, 96, 128, False, 0, "two"),
+         (1, 1, 4, 200, 64, True, 37, "two"),
+         (1, 2, 2, 257, 64, True, 0, "two"),
+         (1, 2, 1, 300, 128, True, 100, "two"),
+         (2, 1, 4, 200, 64, False, 0, "two"),
+         (1, 2, 2, 200, 128, True, 0, "masked"),
+         (2, 2, 2, 300, 128, True, 0, "packed"),
+         (2, 1, 2, 300, 64, False, 0, "packed")]
+
+
+def _case(gen, dt, B, KH, G, S, D):
+    rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(dt)  # noqa: E731
+    return rnd(B, KH, G, S, D), rnd(B, KH, S, D), rnd(B, KH, S, D)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_kernels_match_plain(dtype):
@@ -33,23 +72,43 @@ def test_cuda_kernels_match_plain(dtype):
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     dt = getattr(torch, dtype)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for (B, KH, G, S, D, causal, window) in [(1, 2, 2, 131, 64, True, 0),
-                                             (2, 2, 1, 96, 128, False, 0),
-                                             (1, 1, 4, 200, 64, True, 37)]:
-        q = torch.randn(B, KH, G, S, D, generator=gen, device="cuda").to(dt)
-        k = torch.randn(B, KH, S, D, generator=gen, device="cuda").to(dt)
-        v = torch.randn(B, KH, S, D, generator=gen, device="cuda").to(dt)
-        seg = torch.zeros(B, S, dtype=torch.int32, device="cuda")
-        seg[:, S // 3:] = 1
+    pfa.reset_launches()
+    for (B, KH, G, S, D, causal, window, kind) in CASES:
+        q, k, v = _case(gen, dt, B, KH, G, S, D)
+        seg_q, seg_k = _segments(kind, B, S)
         outs = []
         for plain in (False, True):
             qs, ks, vs = (t.clone().requires_grad_(True) for t in (q, k, v))
             y = pfa.packed_flash_attention_bkgsd(
-                qs, ks, vs, seg, seg, causal=causal, window=window,
+                qs, ks, vs, seg_q, seg_k, causal=causal, window=window,
                 block_q=64, block_k=64, plain=plain)
             grads = torch.autograd.grad(torch.sin(y.float()).sum(), (qs, ks, vs))
             outs.append([y, *grads])
         _assert_close(outs, dt)
+        if kind == "masked":            # p = 0 by the select: exact zeros
+            assert torch.all(outs[0][0][..., :40, :] == 0)
+            assert torch.all(outs[0][1][..., :40, :] == 0)
+    want = pfa.TENSOR_CORE if dt == torch.bfloat16 else pfa.CUDA_CORE
+    assert {key[1] for key in pfa.LAUNCHES if key[0] != "fwd"} == {want}
+
+
+@pytest.mark.gpu
+def test_cuda_tensor_core_backward_is_deterministic():
+    """bf16 K2 and K3 run twice on the same inputs give bitwise equal dq, dk
+    and dv: no atomics, every output element written once by one block."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for (B, KH, G, S, D, causal, window, kind) in CASES:
+        q, k, v = _case(gen, torch.bfloat16, B, KH, G, S, D)
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+        seg_q, seg_k = _segments(kind, B, S)
+        o, lse = pfa.flash_fwd(q, k, v, seg_q, seg_k, causal, window, 64, 64)
+        delta = torch.sum(do.float() * o.float(), -1).contiguous()
+        args = (q, k, v, seg_q, seg_k, do, lse, delta, causal, window, 64, 64)
+        runs = [(pfa.flash_bwd_dq(*args), *pfa.flash_bwd_dkv(*args)) for _ in range(2)]
+        for a, b in zip(*runs):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.gpu

@@ -174,3 +174,113 @@ def test_pad_axis_matches_reference_values():
     y = blocking.pad_axis(x, 8, axis=1, value=blocking.PAD_SEGMENT)
     assert y.tolist() == [[0, 1, 2, 3, 4, 5, -1, -1]]
     assert blocking.pad_axis(x, 6, axis=1) is x
+
+
+# The smoke's bf16 tolerances, relative to the reference output itself:
+# max|err| <= 2e-2 max|ref| and ||err|| <= 1e-2 ||ref||.
+BF16_TOL = (2e-2, 1e-2)
+
+
+def _rounded_backward(q, k, v, seg_q, seg_k, do, lse, delta, causal):
+    """The tensor-core K2/K3's arithmetic in plain torch: fp32 products of
+    the bf16 operands, then p and ds rounded to bf16 before dq = ds k,
+    dk = dsᵀ q (over the G heads) and dv = pᵀ do; outputs in bf16."""
+    D, S = q.shape[-1], q.shape[-2]
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    scale = D ** -0.5
+    pos = torch.arange(S)
+    mask = seg_q[:, None, None, :, None] == seg_k[:, None, None, None, :]
+    if causal:
+        mask = mask & (pos[None, :] <= pos[:, None])
+    s = torch.einsum("bkgqd,bksd->bkgqs", qf, kf) * scale
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    dp = torch.einsum("bkgqd,bksd->bkgqs", dof, vf)
+    ds = p * (dp - delta[..., None]) * scale
+    p_b, ds_b = p.bfloat16().float(), ds.bfloat16().float()
+    dq = torch.einsum("bkgqs,bksd->bkgqd", ds_b, kf)
+    dk = torch.einsum("bkgqs,bkgqd->bksd", ds_b, qf)
+    dv = torch.einsum("bkgqs,bkgqd->bksd", p_b, dof)
+    return dq.bfloat16(), dk.bfloat16(), dv.bfloat16()
+
+
+def _within_bf16_tol(got, ref, what):
+    d, r = got.float() - ref.float(), ref.float()
+    assert d.abs().max().item() <= BF16_TOL[0] * r.abs().max().item(), what
+    assert d.norm().item() <= BF16_TOL[1] * r.norm().item(), what
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [64, 128])
+def test_bf16_rounding_of_p_and_ds_stays_within_tolerance(D, causal):
+    """Rounding p and ds to bf16 before the second products (what the
+    tensor-core K2/K3 do) stays within the smoke's bf16 tolerances of the
+    plain versions, which keep them in fp32, and of the reference's
+    gradients (jax.vjp through the Pallas kernels in interpret mode).
+    S = 257 (prime), G = 2, the first 40 query rows masked everywhere."""
+    B, KH, G, S = 1, 2, 2, 257
+    rng = np.random.default_rng(17 + D + int(causal))
+    q32, do32 = (rng.standard_normal((B, KH, G, S, D)).astype(np.float32) for _ in range(2))
+    k32, v32 = (rng.standard_normal((B, KH, S, D)).astype(np.float32) for _ in range(2))
+    seg_k = np.ones((B, S), np.int32)
+    seg_q = seg_k.copy()
+    seg_q[:, :40] = 7
+    q, k, v, do = (torch.tensor(a).bfloat16() for a in (q32, k32, v32, do32))
+    tsq, tsk = torch.tensor(seg_q), torch.tensor(seg_k)
+
+    o, lse = pfa.fwd_plain(q, k, v, tsq, tsk, causal, 0, S, S)
+    delta = torch.sum(do.float() * o.float(), dim=-1)
+    args = (q, k, v, tsq, tsk, do, lse, delta, causal, 0, S, S)
+    plain = (pfa.bwd_dq_plain(*args), *pfa.bwd_dkv_plain(*args))
+    rounded = _rounded_backward(q, k, v, tsq, tsk, do, lse, delta, causal)
+
+    bf = jnp.bfloat16
+    _, vjp = jax.vjp(
+        lambda q, k, v: jpfa.packed_flash_attention_bkgsd(
+            q, k, v, jnp.asarray(seg_q), jnp.asarray(seg_k), causal=causal,
+            window=0, block_q=64, block_k=64, interpret=True),
+        *(jnp.asarray(a, dtype=bf) for a in (q32, k32, v32)))
+    ref = [torch.tensor(np.asarray(g.astype(jnp.float32)))
+           for g in vjp(jnp.asarray(do32, dtype=bf))]
+
+    for name, r, p, j in zip(("dq", "dk", "dv"), rounded, plain, ref):
+        _within_bf16_tol(r, p, f"{name} vs the plain version")
+        _within_bf16_tol(r, j, f"{name} vs the reference")
+    assert torch.all(rounded[0][..., :40, :] == 0)       # masked rows: exact zeros
+
+
+def test_route_follows_dtype_and_checks_follow_route():
+    """bf16 K2/K3 take the tensor cores, fp32 and K1 the CUDA cores; the
+    argument checks hold each route to its own grid and alignment."""
+    assert pfa.route_of("bwd_dq", torch.bfloat16) == pfa.TENSOR_CORE
+    assert pfa.route_of("bwd_dkv", torch.bfloat16) == pfa.TENSOR_CORE
+    assert pfa.route_of("bwd_dq", torch.float32) == pfa.CUDA_CORE
+    assert pfa.route_of("fwd", torch.bfloat16) == pfa.CUDA_CORE
+    B, KH, G, S, D = 1, 2, 2, 16, 64
+    seg = torch.ones(B, S, dtype=torch.int32)
+    row = torch.zeros(B, KH, G, S)
+
+    def args(dt, q=None):
+        q = torch.zeros(B, KH, G, S, D, dtype=dt) if q is None else q
+        k = torch.zeros(B, KH, S, D, dtype=dt)
+        return (q, k, k, seg, seg, torch.zeros_like(q), row, row)
+
+    for kernel in ("bwd_dq", "bwd_dkv"):
+        pfa._check(kernel, *args(torch.bfloat16))                  # accepted
+        pfa._check(kernel, *args(torch.float32))
+        # a view that starts 2 bytes into its storage: no 16-byte cp.async
+        buf = torch.zeros(B * KH * G * S * D + 1, dtype=torch.bfloat16)
+        q_off = buf[1:].view(B, KH, G, S, D)
+        with pytest.raises(ValueError, match="16-byte"):
+            pfa._check(kernel, *args(torch.bfloat16, q_off)[:5], torch.zeros_like(q_off),
+                       row, row)
+    # grid y: B * KH on the tensor-core route and for K3, B * KH * G otherwise
+    big_g = 40000
+    q = torch.zeros(1, 2, big_g, 1, 64, dtype=torch.bfloat16)
+    k = torch.zeros(1, 2, 1, 64, dtype=torch.bfloat16)
+    s1 = torch.ones(1, 1, dtype=torch.int32)
+    r1 = torch.zeros(1, 2, big_g, 1)
+    pfa._check("bwd_dq", q, k, k, s1, s1, q, r1, r1)
+    with pytest.raises(ValueError, match="grid y"):
+        pfa._check("fwd", q, k, k, s1, s1)
+    with pytest.raises(ValueError, match="grid y"):
+        pfa._check("bwd_dq", q.float(), k.float(), k.float(), s1, s1, q.float(), r1, r1)
