@@ -10,11 +10,12 @@ Phases, each reported on its own lines:
                 and prints the ``-Xptxas -v`` register / shared-memory lines;
   3. compare  — each kernel against its plain PyTorch version on the card:
                 K1 forward and K2/K3 gradients at the three attention shapes of
-                the paths (bf16) and at small edge cases in bf16 (K2/K3 on the
-                tensor cores) and in fp32 (K2/K3 on the CUDA cores): prime
+                the paths (bf16) and at small edge cases in bf16 (K1–K3 on the
+                tensor cores) and in fp32 (K1–K3 on the CUDA cores): prime
                 length, a window spanning tiles, G = 4, rows masked everywhere,
-                packed segments; K2/K3 run twice on each bf16 case must give
-                bitwise equal dq, dk, dv; K4–K7 outputs and gradients
+                packed segments; K1 and K2/K3 run twice on each bf16 case must
+                give bitwise equal o, lse, dq, dk, dv; rows masked everywhere
+                give o = 0, lse = -1e30 and dq = 0 exactly; K4–K7 outputs and gradients
                 (through their autograd Functions) at RWKV6-7B's and Jamba's
                 scan shapes (bf16) and at small fp32 cases (prime lengths,
                 several chunks, B > 1, a nonzero final-state cotangent for K7);
@@ -24,7 +25,7 @@ Phases, each reported on its own lines:
   5. train    — 3 AdamW steps of InternVL2-2B at full width and depth on the
                 paper's mixed data (items that fill the media window; see
                 ``rows``); launch counts of K1–K3 over those steps, by route
-                (every K2/K3 launch must take the tensor cores); then one more
+                (every K1/K2/K3 launch must take the tensor cores); then one more
                 step under ``torch.profiler``: device time per kernel name for
                 K1–K3 and the device's idle share over the step;
   6. paths    — at full width and 2+2 layers, loss and gradients with the
@@ -33,7 +34,7 @@ Phases, each reported on its own lines:
   7. decoders — 3 AdamW steps each of RWKV6-7B and Jamba-v0.1 (dense FFNs)
                 at full width, depth cut to 8 layers, on rows packed by
                 ``pack_items`` from the mixed data; launch counts of K4–K7 and
-                of K1–K3 at Jamba's attention shape per step (K2/K3 on the
+                of K1–K3 at Jamba's attention shape per step (K1–K3 on the
                 tensor cores);
   8. ssm paths— at full width and 2 layers, each decoder with the scan
                 kernels against the naive scans (Python loops over time);
@@ -71,9 +72,9 @@ REPLACES = {"K1": "src/repro/kernels/packed_flash_attention.py:59",
             "K6": "src/repro/kernels/rwkv6_scan.py:43",
             "K7": "src/repro/kernels/rwkv6_scan.py:73"}
 COUNTER = {"K1": "fwd", "K2": "bwd_dq", "K3": "bwd_dkv"}
-# Kernel-name fragments of K1-K3 in a profiler trace (K2/K3: tensor-core and
-# CUDA-core kernels)
-TRACE_NAME = {"K1": "fwd_kernel", "K2": "bwd_dq", "K3": "bwd_dkv"}
+# Kernel-name fragments of K1-K3 in a profiler trace (the training paths run
+# in bf16: the tensor-core kernels)
+TRACE_NAME = {"K1": "fwd_tc_kernel", "K2": "bwd_dq_tc", "K3": "bwd_dkv_tc"}
 SCAN_NAME = {"K4": "mamba_fwd", "K5": "mamba_bwd", "K6": "wkv6_fwd",
              "K7": "wkv6_bwd"}
 # The decoders' training rows: 2 microbatches x 2 rows x 4096 tokens, items
@@ -268,14 +269,17 @@ def main() -> int:
             f"packed_segments_D128/{tag}": make_case(2, 2, 2, 300, 128, dt, True, 0, packed),
         })
 
-    def backward_twice(c):
-        """K2 and K3 run twice on the same inputs: (dq, dk, dv) of each run."""
-        o, lse = pfa.flash_fwd(c["q"], c["k"], c["v"], c["seg_q"], c["seg_k"],
-                               c["causal"], c["window"], 64, 64)
+    def kernels_twice(c):
+        """K1 run twice on the same inputs, then K2 and K3 twice on the first
+        run's o and lse: (o, lse, dq, dk, dv) of each run."""
+        fwd = [pfa.flash_fwd(c["q"], c["k"], c["v"], c["seg_q"], c["seg_k"],
+                             c["causal"], c["window"], 64, 64) for _ in range(2)]
+        o, lse = fwd[0]
         delta = torch.sum(c["do"].float() * o.float(), -1).contiguous()
         args = (c["q"], c["k"], c["v"], c["seg_q"], c["seg_k"], c["do"], lse, delta,
                 c["causal"], c["window"], 64, 64)
-        return [(pfa.flash_bwd_dq(*args), *pfa.flash_bwd_dkv(*args)) for _ in range(2)]
+        return [(*fwd[i], pfa.flash_bwd_dq(*args), *pfa.flash_bwd_dkv(*args))
+                for i in range(2)]
 
     max_err = {}
     for cname, c in cases.items():
@@ -287,19 +291,19 @@ def main() -> int:
             max_err[("K2", shape)] = errs["dq"][0]
             max_err[("K3", shape)] = max(errs["dk"][0], errs["dv"][0])
         if c["q"].dtype == torch.bfloat16:
-            first, second = backward_twice(c)
+            first, second = kernels_twice(c)
             same = all(torch.equal(a, b) for a, b in zip(first, second))
-            log(f"[compare] {cname}: K2/K3 twice on the same inputs: "
+            log(f"[compare] {cname}: K1 and K2/K3 twice on the same inputs: "
                 f"{'bitwise equal' if same else 'DIFFER'}")
             if not same:
-                raise SystemExit(f"K2/K3 are not deterministic: {cname}")
+                raise SystemExit(f"K1-K3 are not deterministic: {cname}")
     for tag in ("f32", "bf16"):
         c = cases[f"masked_rows/{tag}"]
         o, lse = pfa.flash_fwd(c["q"], c["k"], c["v"], c["seg_q"], c["seg_k"],
                                True, 0, 64, 64)
         if not (torch.all(o[..., :40, :] == 0) and torch.all(lse[..., :40] == pfa.NEG_INF)):
             raise SystemExit("rows masked everywhere must give o = 0, lse = -1e30")
-        dq = backward_twice(c)[0][0]
+        dq = kernels_twice(c)[0][2]
         if not torch.all(dq[..., :40, :] == 0):
             raise SystemExit(f"rows masked everywhere must give dq = 0 ({tag})")
     log(f"[compare] launches of the comparisons, by route: {dict(pfa.LAUNCHES)}")
@@ -454,7 +458,7 @@ def main() -> int:
                               "SDPA backward (fwd+bwd - fwd), dq and dk/dv together"))
             r = timing[(kn, shape)]
             log(f"[timing] {kn} {shape} (B={B} KH={KH} G={G} S={S} D={D} bf16 "
-                f"causal={causal}, {pfa.route_of(COUNTER[kn], q.dtype)}): kernel "
+                f"causal={causal}, {pfa.route_of(q.dtype)}): kernel "
                 f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
                 f"({r['bound_by']}, {100 * r['bound_ms'] / r['ms']:.1f} % of it), "
                 f"{ops_ / r['ms'] / 1e9:.1f} TFLOP/s over the kept pairs")
@@ -527,13 +531,12 @@ def main() -> int:
         f"and step) would be {bench.rwkv6_flops(*dims_r) / 1e9:.2f} GFLOP for K6")
 
     def check_routes(tag):
-        """Fail unless every K2/K3 launch since the last reset took the
+        """Fail unless every K1/K2/K3 launch since the last reset took the
         tensor cores (the training paths run in bf16)."""
-        off = {key: n for key, n in pfa.LAUNCHES.items()
-               if key[0] != "fwd" and key[1] != pfa.TENSOR_CORE}
+        off = {key: n for key, n in pfa.LAUNCHES.items() if key[1] != pfa.TENSOR_CORE}
         if off:
-            raise SystemExit(f"{tag}: K2/K3 launches off the tensor cores: {off}")
-        log(f"[{tag}] every K2/K3 launch took the tensor cores")
+            raise SystemExit(f"{tag}: K1-K3 launches off the tensor cores: {off}")
+        log(f"[{tag}] every K1/K2/K3 launch took the tensor cores")
 
     def profile_step(fn, tag, shapes, step_s):
         """Run ``fn`` (one train step) under torch.profiler and print the
@@ -652,9 +655,9 @@ def main() -> int:
         if not math.isfinite(loss):
             raise SystemExit("non-finite loss")
     # launches per kernel and per path shape, over the 3 steps, on the route
-    # each kernel must take in bf16 (K2/K3 on the tensor cores)
+    # each kernel must take in bf16 (the tensor cores)
     mllm_shapes = ("encoder", "llm")
-    launches = {(kn, shape): pfa.LAUNCHES[(COUNTER[kn], pfa.route_of(COUNTER[kn], torch.bfloat16),
+    launches = {(kn, shape): pfa.LAUNCHES[(COUNTER[kn], pfa.route_of(torch.bfloat16),
                                            path_shapes[shape]["D"], path_shapes[shape]["causal"])]
                 for shape in mllm_shapes for kn in COUNTER}
     peak = torch.cuda.max_memory_allocated()
@@ -756,7 +759,7 @@ def main() -> int:
         for kn in COUNTER:
             counts[(kn, name)] = sum(n for (kk, route, _, _), n in pfa.LAUNCHES.items()
                                      if kk == COUNTER[kn]
-                                     and route == pfa.route_of(kk, torch.bfloat16))
+                                     and route == pfa.route_of(torch.bfloat16))
         check_routes(f"decoders {name}")
         log(f"[decoders] {name}: launches over 3 steps " + ", ".join(
             f"{kn} {n} ({n / 3:g}/step)" for (kn, _), n in counts.items()) +

@@ -51,7 +51,8 @@ SMEM_PER_BLOCK = 232_448
 
 
 class BuildLog:
-    """What the builds of this process did: seconds and ``-Xptxas -v`` lines."""
+    """What the builds of this process did: seconds, and the ``-Xptxas -v``
+    lines and compiler warnings (e.g. a wgmma pipeline it serialized)."""
 
     def __init__(self):
         self.seconds: dict[str, float] = {}
@@ -86,7 +87,7 @@ def _compile(name: str, out: Path, tail: list[str]) -> None:
     LOG.seconds[name] = time.perf_counter() - t0
     LOG.ptxas[name] = [ln for ln in proc.stdout.splitlines()
                        if "registers" in ln or "smem" in ln or "spill" in ln
-                       or "Compiling entry" in ln]
+                       or "Compiling entry" in ln or "arning" in ln]
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
     os.replace(tmp, out)

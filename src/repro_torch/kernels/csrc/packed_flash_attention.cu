@@ -1,7 +1,7 @@
 // Packed flash attention for Hopper (sm_90a): forward (K1), dq (K2), dk/dv (K3).
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/packed_flash_attention.py:
-//   K1 fwd_kernel                      <- _fwd_kernel     (online-softmax GQA forward, o and lse)
+//   K1 fwd_tc_kernel, fwd_kernel        <- _fwd_kernel     (online-softmax GQA forward, o and lse)
 //   K2 bwd_dq_tc_kernel, bwd_dq_kernel  <- _bwd_dq_kernel  (dq = sum_j ds_ij k_j)
 //   K3 bwd_dkv_tc_kernel, bwd_dkv_kernel <- _bwd_dkv_kernel (dk_j = sum_i ds_ij^T q_i,
 //                                        dv_j = sum_i p_ij^T do_i, summed over the G query
@@ -25,15 +25,29 @@
 // operations per byte, so every kernel here is bound by the tensor cores' 989 TFLOP/s
 // (bf16) over the (q, k) pairs the mask keeps.
 //
-// K2 and K3 in bf16 (the main path's type) run on the tensor cores.  One warpgroup per
-// block; 64 x 64 tiles held in shared memory in wgmma's 128-byte-swizzled layout.
+// In bf16 (the main path's type) all three run on the tensor cores.  One warpgroup
+// (128 threads) per block; 64 x 64 tiles held in shared memory in wgmma's
+// 128-byte-swizzled layout, streamed through a double-buffered cp.async ring.
+//   K1: one block per (b, query head, 64-row q tile).  It holds the Q tile and streams
+//       K and V; per key tile S = Q K^T is wgmma m64n64k16 with both operands in shared
+//       memory (K-major); the online softmax runs in fp32 registers (row max and sum
+//       over the 4 lanes of a row by shuffles, O rescaled by 2^(m_prev - m_new)); p is
+//       summed into l in fp32, rounded to bf16 and fed as register A fragments to
+//       O += P V (V in shared memory read MN-major, so no transpose).  K1 is bound by
+//       the instructions of the softmax more than by its products, so a tile costs as
+//       few as it can: the scale and log2(e) fold into one FMA before ex2.approx.ftz;
+//       a warp whose 64 x 64 elements all attend skips the mask selects; a tile whose
+//       rows and keys each hold one segment gets its mask from 4 id ranges per side
+//       (min and max of each 32 ids, reduced as the ids load) instead of 32 compares
+//       a thread; O is not rescaled when no row max of the warp moved.  Shared memory
+//       42,800 B (D 64) / 83,760 B (D 128) a block; with 122 / 172 registers an SM
+//       holds 4 / 2 blocks.
 //   K2: one block per (b, kv head, 64-row q tile).  For each of the G query heads it
-//       holds the Q and dO tiles and streams K and V tiles through a double-buffered
-//       cp.async ring; per key tile S = Q K^T and dP = dO V^T are wgmma m64n64k16 with
-//       both operands in shared memory (K-major), p = exp(S scale - lse) and
-//       ds = p (dP - delta) scale are formed in fp32 registers, rounded to bf16 and fed
-//       as register A fragments to dQ += dS K (K in shared memory read MN-major, so no
-//       transpose).
+//       holds the Q and dO tiles and streams K and V tiles; per key tile S = Q K^T and
+//       dP = dO V^T are wgmma with both operands in shared memory (K-major),
+//       p = exp(S scale - lse) and ds = p (dP - delta) scale are formed in fp32
+//       registers, rounded to bf16 and fed as register A fragments to dQ += dS K (K
+//       read MN-major).
 //   K3: one block per (b, kv head, 64-key tile).  It holds K and V and streams Q, dO,
 //       lse and delta through the ring over the G heads and the q tiles the causal and
 //       window bounds allow, in the transposed form S^T = K Q^T, dP^T = V dO^T: P^T and
@@ -50,13 +64,14 @@
 //   What the design leaves on the table: the kernels are bound by the instructions
 //   around the products (mask, exponentials, barriers) more than by the products.  One
 //   warpgroup does its own loads (no producer warp, no TMA) and waits for each product
-//   before the softmax step, so overlap comes only from the 2-3 blocks an SM holds.
+//   before the softmax step, so overlap comes only from the blocks an SM holds.  Later
+//   steps: a TMA producer warp, two consumer warpgroups sharing K and V (the G heads
+//   of a kv head in K1, or two q tiles), 128-key tiles.
 //
-// K1 in both types, and K2 and K3 in fp32, are the first versions: fp32 FMAs on the
-// CUDA cores from shared-memory tiles (16x16 threads, each owning a strided 4x4 (or
-// 4xD/16) register micro-tile, bank conflicts avoided by row padding).  fp32 stays off
-// the tensor cores on purpose: TF32 would break the fp32 tolerance of 1e-4.  K1 on
-// wgmma is the next step.
+// In fp32, K1-K3 are the first versions: fp32 FMAs on the CUDA cores from
+// shared-memory tiles (16x16 threads, each owning a strided 4x4 (or 4xD/16) register
+// micro-tile, bank conflicts avoided by row padding).  fp32 stays off the tensor cores
+// on purpose: TF32 would break the fp32 tolerance of 1e-4.
 #include <stdint.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -71,23 +86,14 @@ constexpr int NT = 256;       // threads per block, 16 x 16
 constexpr int PS = BK + 16;   // row stride of p / ds tiles: two half-warps hit disjoint banks
 constexpr float NEG_INF = -1e30f;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 // Rows [row0, row0 + 64) of a row-major (S, D) matrix into shared memory with row
 // stride D + 1, as fp32; rows past S are zeros.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int row0, int S) {
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, int row0, int S) {
   for (int idx = threadIdx.x; idx < BQ * D; idx += NT) {
     const int r = idx / D, c = idx % D;
     const int row = row0 + r;
-    dst[r * (D + 1) + c] = row < S ? to_f(src[(size_t)row * D + c]) : 0.f;
+    dst[r * (D + 1) + c] = row < S ? src[(size_t)row * D + c] : 0.f;
   }
 }
 
@@ -164,13 +170,14 @@ constexpr size_t dkv_smem() {
 }
 
 // --------------------------------------------------------------------------- //
-// K1: forward.  grid (n q tiles, B * H), H = KH * G.
+// K1 (fp32): forward.  grid (n q tiles, B * H), H = KH * G.
 // --------------------------------------------------------------------------- //
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT)
-fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-           const int* __restrict__ seg_q, const int* __restrict__ seg_k,
-           T* __restrict__ o, float* __restrict__ lse,
+fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+           const float* __restrict__ v, const int* __restrict__ seg_q,
+           const int* __restrict__ seg_k,
+           float* __restrict__ o, float* __restrict__ lse,
            int H, int G, int Sq, int Sk, int causal, int window, float scale) {
   constexpr int DS = D + 1;
   constexpr int DPT = D / 16;
@@ -190,9 +197,9 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int q0 = iq * BQ;
 
-  const T* kb = k + (size_t)bkv * Sk * D;
-  const T* vb = v + (size_t)bkv * Sk * D;
-  load_tile<T, D>(sQ, q + (size_t)bh * Sq * D, q0, Sq);
+  const float* kb = k + (size_t)bkv * Sk * D;
+  const float* vb = v + (size_t)bkv * Sk * D;
+  load_tile<D>(sQ, q + (size_t)bh * Sq * D, q0, Sq);
   load_ids(sSq, seg_q + (size_t)b * Sq, q0, Sq);
 
   float m[4], l[4], acc[4][DPT];
@@ -209,8 +216,8 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();                        // previous tile's sK, sV, sP are consumed
-    load_tile<T, D>(sK, kb, k0, Sk);
-    load_tile<T, D>(sV, vb, k0, Sk);
+    load_tile<D>(sK, kb, k0, Sk);
+    load_tile<D>(sV, vb, k0, Sk);
     load_ids(sSk, seg_k + (size_t)b * Sk, k0, Sk);
     __syncthreads();
 
@@ -282,9 +289,9 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
     if (qp >= Sq) continue;
     const bool live = l[i] > 0.f;
     const float den = fmaxf(l[i], 1e-30f);
-    T* orow = o + ((size_t)bh * Sq + qp) * D;
+    float* orow = o + ((size_t)bh * Sq + qp) * D;
 #pragma unroll
-    for (int j = 0; j < DPT; ++j) orow[tx + 16 * j] = from_f<T>(live ? acc[i][j] / den : 0.f);
+    for (int j = 0; j < DPT; ++j) orow[tx + 16 * j] = live ? acc[i][j] / den : 0.f;
     if (tx == 0) lse[(size_t)bh * Sq + qp] = live ? m[i] + logf(den) : NEG_INF;
   }
 }
@@ -292,12 +299,13 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
 // --------------------------------------------------------------------------- //
 // K2 (fp32): dq.  grid (n q tiles, B * H); loops over key tiles.
 // --------------------------------------------------------------------------- //
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT)
-bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-              const int* __restrict__ seg_q, const int* __restrict__ seg_k,
-              const T* __restrict__ dout, const float* __restrict__ lse,
-              const float* __restrict__ delta, T* __restrict__ dq,
+bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const int* __restrict__ seg_q,
+              const int* __restrict__ seg_k,
+              const float* __restrict__ dout, const float* __restrict__ lse,
+              const float* __restrict__ delta, float* __restrict__ dq,
               int H, int G, int Sq, int Sk, int causal, int window, float scale) {
   constexpr int DS = D + 1;
   constexpr int DPT = D / 16;
@@ -320,10 +328,10 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int q0 = iq * BQ;
 
-  const T* kb = k + (size_t)bkv * Sk * D;
-  const T* vb = v + (size_t)bkv * Sk * D;
-  load_tile<T, D>(sQ, q + (size_t)bh * Sq * D, q0, Sq);
-  load_tile<T, D>(sDO, dout + (size_t)bh * Sq * D, q0, Sq);
+  const float* kb = k + (size_t)bkv * Sk * D;
+  const float* vb = v + (size_t)bkv * Sk * D;
+  load_tile<D>(sQ, q + (size_t)bh * Sq * D, q0, Sq);
+  load_tile<D>(sDO, dout + (size_t)bh * Sq * D, q0, Sq);
   load_row_f32(sLse, lse + (size_t)bh * Sq, q0, Sq);
   load_row_f32(sDelta, delta + (size_t)bh * Sq, q0, Sq);
   load_ids(sSq, seg_q + (size_t)b * Sq, q0, Sq);
@@ -339,8 +347,8 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();
-    load_tile<T, D>(sK, kb, k0, Sk);
-    load_tile<T, D>(sV, vb, k0, Sk);
+    load_tile<D>(sK, kb, k0, Sk);
+    load_tile<D>(sV, vb, k0, Sk);
     load_ids(sSk, seg_k + (size_t)b * Sk, k0, Sk);
     __syncthreads();
 
@@ -402,21 +410,22 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   for (int i = 0; i < 4; ++i) {
     const int qp = q0 + ty + 16 * i;
     if (qp >= Sq) continue;
-    T* row = dq + ((size_t)bh * Sq + qp) * D;
+    float* row = dq + ((size_t)bh * Sq + qp) * D;
 #pragma unroll
-    for (int j = 0; j < DPT; ++j) row[tx + 16 * j] = from_f<T>(acc[i][j]);
+    for (int j = 0; j < DPT; ++j) row[tx + 16 * j] = acc[i][j];
   }
 }
 
 // --------------------------------------------------------------------------- //
 // K3 (fp32): dk, dv.  grid (n key tiles, B * KH); loops over the G heads and q tiles.
 // --------------------------------------------------------------------------- //
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT)
-bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-               const int* __restrict__ seg_q, const int* __restrict__ seg_k,
-               const T* __restrict__ dout, const float* __restrict__ lse,
-               const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const int* __restrict__ seg_q,
+               const int* __restrict__ seg_k,
+               const float* __restrict__ dout, const float* __restrict__ lse,
+               const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv,
                int KH, int G, int Sq, int Sk, int causal, int window, float scale) {
   constexpr int DS = D + 1;
   constexpr int DPT = D / 16;
@@ -438,8 +447,8 @@ bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int k0 = ik * BK;
 
-  load_tile<T, D>(sK, k + (size_t)bkv * Sk * D, k0, Sk);
-  load_tile<T, D>(sV, v + (size_t)bkv * Sk * D, k0, Sk);
+  load_tile<D>(sK, k + (size_t)bkv * Sk * D, k0, Sk);
+  load_tile<D>(sV, v + (size_t)bkv * Sk * D, k0, Sk);
   load_ids(sSk, seg_k + (size_t)b * Sk, k0, Sk);
 
   float gk[4][DPT], gv[4][DPT];
@@ -455,8 +464,8 @@ bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
     for (int qt = qt_begin; qt < qt_end; ++qt) {
       const int q0 = qt * BQ;
       __syncthreads();
-      load_tile<T, D>(sQ, q + bh * Sq * D, q0, Sq);
-      load_tile<T, D>(sDO, dout + bh * Sq * D, q0, Sq);
+      load_tile<D>(sQ, q + bh * Sq * D, q0, Sq);
+      load_tile<D>(sDO, dout + bh * Sq * D, q0, Sq);
       load_row_f32(sLse, lse + bh * Sq, q0, Sq);
       load_row_f32(sDelta, delta + bh * Sq, q0, Sq);
       load_ids(sSq, seg_q + (size_t)b * Sq, q0, Sq);
@@ -530,12 +539,12 @@ bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   for (int i = 0; i < 4; ++i) {
     const int kp = k0 + ty + 16 * i;
     if (kp >= Sk) continue;
-    T* krow = dk + ((size_t)bkv * Sk + kp) * D;
-    T* vrow = dv + ((size_t)bkv * Sk + kp) * D;
+    float* krow = dk + ((size_t)bkv * Sk + kp) * D;
+    float* vrow = dv + ((size_t)bkv * Sk + kp) * D;
 #pragma unroll
     for (int j = 0; j < DPT; ++j) {
-      krow[tx + 16 * j] = from_f<T>(gk[i][j]);
-      vrow[tx + 16 * j] = from_f<T>(gv[i][j]);
+      krow[tx + 16 * j] = gk[i][j];
+      vrow[tx + 16 * j] = gv[i][j];
     }
   }
 }
@@ -708,18 +717,22 @@ __device__ __forceinline__ void mma_rs_tb(float (&d)[64], uint32_t a0, uint32_t 
 // + h % 2.  For a 64 x 64 accumulator the 32 elements of the 128 threads partition the
 // tile; bit 4j + h of the result says whether that element attends.  Rows are queries
 // and columns keys (ROWS_ARE_Q, K2) or the transpose (K3).
+// A tile wholly in range, below the causal diagonal and inside the window: the same
+// answer for every thread; such a tile is masked by the segment ids alone.
+__device__ __forceinline__ bool interior_tile(int q0, int k0, int Sq, int Sk, int causal,
+                                              int window) {
+  return q0 + BQ <= Sq && k0 + BK <= Sk && (!causal || k0 + BK - 1 <= q0) &&
+         (window <= 0 || q0 + BQ - 1 - k0 < window);
+}
+
 template <bool ROWS_ARE_Q>
 __device__ __forceinline__ uint32_t tile_mask_bits(int row0, int col0, const int* seg_rows,
                                                    const int* seg_cols, int Sq, int Sk,
                                                    int causal, int window) {
   const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
   const int q0 = ROWS_ARE_Q ? row0 : col0, k0 = ROWS_ARE_Q ? col0 : row0;
-  // A tile wholly in range, below the causal diagonal and inside the window (the same
-  // answer for every thread) is masked by the segment ids alone.
-  const bool interior = q0 + BQ <= Sq && k0 + BK <= Sk && (!causal || k0 + BK - 1 <= q0) &&
-                        (window <= 0 || q0 + BQ - 1 - k0 < window);
   uint32_t bits = 0;
-  if (interior) {
+  if (interior_tile(q0, k0, Sq, Sk, causal, window)) {
     const int r = 16 * w + (l >> 2);
     const int s0 = seg_rows[r], s1 = seg_rows[r + 8];
 #pragma unroll
@@ -1018,6 +1031,222 @@ bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
   store_acc<D>(dv + (size_t)bkv * Sk * D, gv, k0, Sk);
 }
 
+// --------------------------------------------------------------------------- //
+// K1 (bf16): forward.  grid (n q tiles, B * H), H = KH * G; loops over the key
+// tiles, K and V double-buffered by cp.async as in K2.  S = Q K^T on wgmma, the
+// online softmax in fp32 registers, then O += P V with P as the register A operand.
+// --------------------------------------------------------------------------- //
+template <int D>
+constexpr size_t fwd_tc_smem() {            // Q, 2 stages of K and V; ids and their ranges
+  return 1024 + 5 * tile_bytes<D>() + sizeof(int) * (BQ + 2 * BK + 3 * 4);
+}
+static_assert(fwd_tc_smem<128>() <= 232448, "shared memory of one block");
+
+// 64 int32 ids starting at i0 (-1 past n) into dst, and into rng the min and max of
+// each half (4 ints): a tile whose ids are all one segment is known by 4 loads.
+__device__ __forceinline__ void load_ids_range(int* dst, int* rng, const int* src, int i0,
+                                               int n) {
+  if (threadIdx.x < 64) {
+    const int i = i0 + threadIdx.x;
+    const int x = i < n ? src[i] : -1;
+    dst[threadIdx.x] = x;
+    const int lo = __reduce_min_sync(0xffffffffu, x), hi = __reduce_max_sync(0xffffffffu, x);
+    if ((threadIdx.x & 31) == 0) {
+      rng[2 * (threadIdx.x >> 5)] = lo;
+      rng[2 * (threadIdx.x >> 5) + 1] = hi;
+    }
+  }
+}
+
+// The one segment id of a tile's 64 rows or keys, or -1 if they hold several (a row
+// or key past S counts as id -1).  Only ids >= 0 take the shortcut below.
+__device__ __forceinline__ int uniform_id(const int* rng) {
+  return rng[0] == rng[1] && rng[2] == rng[3] && rng[0] == rng[2] ? rng[0] : -1;
+}
+
+// 2^x with a denormal result flushed to 0; 2^(-1e30) = 0.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The online-softmax step of one key tile for this thread's two rows (accumulator
+// elements 4 j + h, h < 2: row r0, h >= 2: row r0 + 8).  s holds the tile's scores on
+// entry and p = 2^(s c - m c) on exit; m (unscaled, the same in the row's 4 lanes) and
+// l (this thread's partial sum) are updated, corr returns 2^((m_prev - m_new) c).
+// MASKED: some element of the warp does not attend.  Its score takes no part in the
+// max, and its p is 0 by an explicit select: on a row masked everywhere m stays
+// -1e30, and 2^(s c - m c) would be 1.  Without MASKED every element attends.
+template <bool MASKED>
+__device__ __forceinline__ void softmax_tile(float (&s)[32], uint32_t live, float c,
+                                             float& m0, float& m1, float& l0, float& l1,
+                                             float& corr0, float& corr1) {
+  float mx0 = NEG_INF, mx1 = NEG_INF;
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    const float x = !MASKED || (live >> e) & 1u ? s[e] : NEG_INF;
+    if (e & 2) mx1 = fmaxf(mx1, x);
+    else mx0 = fmaxf(mx0, x);
+  }
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+  }
+  const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+  // 0 on a live row's first tile (m = -1e30), 1 on a row masked so far
+  corr0 = ex2((m0 - mn0) * c);
+  corr1 = ex2((m1 - mn1) * c);
+  m0 = mn0;
+  m1 = mn1;
+  const float mc0 = mn0 * c, mc1 = mn1 * c;
+  float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    const float p = ex2(fmaf(s[e], c, -(e & 2 ? mc1 : mc0)));
+    s[e] = !MASKED || (live >> e) & 1u ? p : 0.f;
+    if (e & 2) ps1 += s[e];
+    else ps0 += s[e];
+  }
+  l0 = l0 * corr0 + ps0;
+  l1 = l1 * corr1 + ps1;
+}
+
+template <int D>
+__global__ void __launch_bounds__(WG)
+fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+              const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg_q,
+              const int* __restrict__ seg_k, __nv_bfloat16* __restrict__ o,
+              float* __restrict__ lse, int H, int G, int Sq, int Sk, int causal, int window,
+              float scale) {
+  constexpr uint32_t TB = tile_bytes<D>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  const uint32_t sQ = smem_u32(sm);
+  const uint32_t sKV = sQ + TB;             // stage s: K at sKV + 2 s TB, V at sKV + (2 s + 1) TB
+  int* sSq = reinterpret_cast<int*>(sm + 5 * TB);
+  int* sSk = sSq + BQ;                      // [2][BK]
+  int* sRng = sSk + 2 * BK;                 // id ranges: Q's, then [2] K's, 4 ints each
+
+  const int tid = threadIdx.x, w = tid >> 5, l = tid & 31;
+  const int nq = (Sq + BQ - 1) / BQ;
+  const int q0 = (nq - 1 - (int)blockIdx.x) * BQ;        // longest causal rows first
+  const int bh = blockIdx.y, b = bh / H, bkv = bh / G;
+  const __nv_bfloat16* kb = k + (size_t)bkv * Sk * D;
+  const __nv_bfloat16* vb = v + (size_t)bkv * Sk * D;
+  // p = 2^(s c - m c): the softmax scale and log2(e) in one factor
+  const float c = scale * LOG2E;
+  int kt_begin, kt_end;
+  key_tile_range(q0, Sq, Sk, causal, window, &kt_begin, &kt_end);
+
+  auto issue_kv = [&](int kt, int st) {
+    tile_async<D>(sKV + 2 * st * TB, kb, kt * BK, Sk);
+    tile_async<D>(sKV + (2 * st + 1) * TB, vb, kt * BK, Sk);
+    load_ids_range(sSk + BK * st, sRng + 4 + 4 * st, seg_k + (size_t)b * Sk, kt * BK, Sk);
+  };
+
+  tile_async<D>(sQ, q + (size_t)bh * Sq * D, q0, Sq);
+  load_ids_range(sSq, sRng, seg_q + (size_t)b * Sq, q0, Sq);
+  if (kt_begin < kt_end) issue_kv(kt_begin, 0);
+  cp_commit();
+
+  // This thread's two rows are r0 = 16 w + l / 4 and r0 + 8; l sums this thread's p
+  // of each row, so the 4 lanes' partial sums are added once, after the loop.
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int st = (kt - kt_begin) & 1;
+    cp_wait<0>();
+    fence_async_smem();
+    // as in K2: tile kt has landed and tile kt - 1 is consumed, so its stage takes
+    // tile kt + 1, which loads while this one computes
+    __syncthreads();
+    if (kt + 1 < kt_end) {
+      issue_kv(kt + 1, st ^ 1);
+      cp_commit();
+    }
+    // A tile whose rows and keys each hold one segment attends nowhere if the two
+    // differ and everywhere if they agree on an interior tile; any other tile takes
+    // its mask bits element by element.
+    uint32_t live;
+    const int uq = uniform_id(sRng), uk = uniform_id(sRng + 4 + 4 * st);
+    if (uq >= 0 && uk >= 0 && (uq != uk || interior_tile(q0, kt * BK, Sq, Sk, causal, window)))
+      live = uq == uk ? 0xffffffffu : 0u;
+    else
+      live = tile_mask_bits<true>(q0, kt * BK, sSq, sSk + BK * st, Sq, Sk, causal, window);
+    // A tile in which no (q, k) pair attends changes no m, l or o: the block skips it.
+    if (__syncthreads_or(live != 0)) {
+      const uint32_t sK = sKV + 2 * st * TB, sV = sK + TB;
+      float s[32];
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) mma_ss(s, desc_k(sQ, kk), desc_k(sK, kk), kk);
+      wg_commit();
+      wg_wait0();
+      pin(s);
+      float corr0, corr1;
+      if (__all_sync(0xffffffffu, live == 0xffffffffu))
+        softmax_tile<false>(s, live, c, m0, m1, l0, l1, corr0, corr1);
+      else
+        softmax_tile<true>(s, live, c, m0, m1, l0, l1, corr0, corr1);
+      // l is summed from the fp32 p; P V takes them rounded to bf16
+      uint32_t a[16];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        a[2 * j] = pack_bf16(s[4 * j], s[4 * j + 1]);
+        a[2 * j + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
+      }
+      // rescale O unless no row max of the warp moved (a factor of 1 changes nothing)
+      if (!__all_sync(0xffffffffu, corr0 == 1.f && corr1 == 1.f)) {
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          acc[4 * j] *= corr0;
+          acc[4 * j + 1] *= corr0;
+          acc[4 * j + 2] *= corr1;
+          acc[4 * j + 3] *= corr1;
+        }
+      }
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        mma_rs_tb(acc, a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3],
+                  desc_mn(sV, kk), 1);
+      wg_commit();
+      wg_wait0();
+      pin(acc);
+      pin(a);
+    }
+  }
+  cp_wait<0>();                             // no copy outlives the block (empty key range)
+
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  // o = acc / l and lse = m scale + log l (natural log, as K2 and K3 read it) on a row
+  // that attends anything; o = 0 and lse = -1e30 on a row masked everywhere
+  const bool live0 = l0 > 0.f, live1 = l1 > 0.f;
+  const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    acc[4 * j] = live0 ? acc[4 * j] / den0 : 0.f;
+    acc[4 * j + 1] = live0 ? acc[4 * j + 1] / den0 : 0.f;
+    acc[4 * j + 2] = live1 ? acc[4 * j + 2] / den1 : 0.f;
+    acc[4 * j + 3] = live1 ? acc[4 * j + 3] / den1 : 0.f;
+  }
+  store_acc<D>(o + (size_t)bh * Sq * D, acc, q0, Sq);
+  if ((l & 3) == 0) {
+    const int r = q0 + 16 * w + (l >> 2);
+    if (r < Sq) lse[(size_t)bh * Sq + r] = live0 ? m0 * scale + logf(den0) : NEG_INF;
+    if (r + 8 < Sq) lse[(size_t)bh * Sq + r + 8] = live1 ? m1 * scale + logf(den1) : NEG_INF;
+  }
+}
+
 // D^-0.5 rounded to fp32, as the TPU wrapper's `D ** -0.5` is.
 float softmax_scale(int D) { return (float)(1.0 / sqrt((double)D)); }
 
@@ -1026,49 +1255,67 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, const int* seg_q,
                        const int* seg_k, void* o, float* lse, int B, int KH, int G, int Sq,
                        int Sk, int causal, int window, cudaStream_t stream) {
   const size_t smem = fwd_smem<D>();
-  cudaError_t e = allow_smem(fwd_kernel<T, D>, smem);
+  cudaError_t e = allow_smem(fwd_kernel<D>, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((Sq + BQ - 1) / BQ, B * KH * G);
-  fwd_kernel<T, D><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), seg_q, seg_k,
-      static_cast<T*>(o), lse, KH * G, G, Sq, Sk, causal, window, softmax_scale(D));
+  fwd_kernel<D><<<grid, NT, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), seg_q, seg_k, static_cast<float*>(o), lse, KH * G, G, Sq,
+      Sk, causal, window, softmax_scale(D));
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
+cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v, const int* seg_q,
+                          const int* seg_k, void* o, float* lse, int B, int KH, int G, int Sq,
+                          int Sk, int causal, int window, cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  const size_t smem = fwd_tc_smem<D>();
+  cudaError_t e = allow_smem(fwd_tc_kernel<D>, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((Sq + BQ - 1) / BQ, B * KH * G);
+  fwd_tc_kernel<D><<<grid, WG, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      seg_q, seg_k, static_cast<bf16*>(o), lse, KH * G, G, Sq, Sk, causal, window,
+      softmax_scale(D));
+  return cudaGetLastError();
+}
+
+template <int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const int* seg_q,
                       const int* seg_k, const void* dout, const float* lse, const float* delta,
                       void* dq, int B, int KH, int G, int Sq, int Sk, int causal, int window,
                       cudaStream_t stream) {
   const size_t smem = dq_smem<D>();
-  cudaError_t e = allow_smem(bwd_dq_kernel<T, D>, smem);
+  cudaError_t e = allow_smem(bwd_dq_kernel<D>, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((Sq + BQ - 1) / BQ, B * KH * G);
-  bwd_dq_kernel<T, D><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), seg_q, seg_k,
-      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), KH * G, G, Sq, Sk, causal,
-      window, softmax_scale(D));
+  bwd_dq_kernel<D><<<grid, NT, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), seg_q, seg_k, static_cast<const float*>(dout), lse, delta,
+      static_cast<float*>(dq), KH * G, G, Sq, Sk, causal, window, softmax_scale(D));
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const int* seg_q,
                        const int* seg_k, const void* dout, const float* lse, const float* delta,
                        void* dk, void* dv, int B, int KH, int G, int Sq, int Sk, int causal,
                        int window, cudaStream_t stream) {
   const size_t smem = dkv_smem<D>();
-  cudaError_t e = allow_smem(bwd_dkv_kernel<T, D>, smem);
+  cudaError_t e = allow_smem(bwd_dkv_kernel<D>, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((Sk + BK - 1) / BK, B * KH);
-  bwd_dkv_kernel<T, D><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), seg_q, seg_k,
-      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), KH, G,
-      Sq, Sk, causal, window, softmax_scale(D));
+  bwd_dkv_kernel<D><<<grid, NT, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), seg_q, seg_k, static_cast<const float*>(dout), lse, delta,
+      static_cast<float*>(dk), static_cast<float*>(dv), KH, G, Sq, Sk, causal, window,
+      softmax_scale(D));
   return cudaGetLastError();
 }
 
@@ -1110,16 +1357,9 @@ cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v, const int
 
 // Plain C interface (loaded with ctypes).  Pointers are device pointers, `stream` is
 // a cudaStream_t; `bf16` selects bf16 (1) or fp32 (0) q/k/v/o; D must be 64 or 128.
-// The forward runs the CUDA-core kernel in both types; the backwards run the
-// tensor-core kernels in bf16 and the CUDA-core kernels in fp32.  Each function
-// returns the cudaError_t of its launch (0 on success).
-#define PFA_DISPATCH(CALL)                                                  \
-  if (bf16 && D == 64) return (int)CALL(__nv_bfloat16, 64);                 \
-  if (bf16 && D == 128) return (int)CALL(__nv_bfloat16, 128);               \
-  if (!bf16 && D == 64) return (int)CALL(float, 64);                        \
-  if (!bf16 && D == 128) return (int)CALL(float, 128);                      \
-  return (int)cudaErrorInvalidValue;
-#define PFA_DISPATCH_BWD(TC, FP32)                                          \
+// Every kernel runs on the tensor cores in bf16 and on the CUDA cores in fp32.
+// Each function returns the cudaError_t of its launch (0 on success).
+#define PFA_DISPATCH(TC, FP32)                                              \
   if (bf16 && D == 64) return (int)TC(64);                                  \
   if (bf16 && D == 128) return (int)TC(128);                                \
   if (!bf16 && D == 64) return (int)FP32(64);                               \
@@ -1131,12 +1371,16 @@ extern "C" {
 int pfa_fwd(const void* q, const void* k, const void* v, const void* seg_q, const void* seg_k,
             void* o, void* lse, int B, int KH, int G, int Sq, int Sk, int D, int causal,
             int window, int bf16, void* stream) {
-#define CALL(T, DD)                                                                        \
-  launch_fwd<T, DD>(q, k, v, static_cast<const int*>(seg_q), static_cast<const int*>(seg_k), \
-                    o, static_cast<float*>(lse), B, KH, G, Sq, Sk, causal, window,         \
-                    static_cast<cudaStream_t>(stream))
-  PFA_DISPATCH(CALL)
-#undef CALL
+#define ARGS                                                                             \
+  q, k, v, static_cast<const int*>(seg_q), static_cast<const int*>(seg_k), o,             \
+      static_cast<float*>(lse), B, KH, G, Sq, Sk, causal, window,                         \
+      static_cast<cudaStream_t>(stream)
+#define TC(DD) launch_fwd_tc<DD>(ARGS)
+#define FP32(DD) launch_fwd<DD>(ARGS)
+  PFA_DISPATCH(TC, FP32)
+#undef FP32
+#undef TC
+#undef ARGS
 }
 
 int pfa_bwd_dq(const void* q, const void* k, const void* v, const void* seg_q,
@@ -1148,8 +1392,8 @@ int pfa_bwd_dq(const void* q, const void* k, const void* v, const void* seg_q,
       static_cast<const float*>(lse), static_cast<const float*>(delta), dq, B, KH, G, Sq, \
       Sk, causal, window, static_cast<cudaStream_t>(stream)
 #define TC(DD) launch_dq_tc<DD>(ARGS)
-#define FP32(DD) launch_dq<float, DD>(ARGS)
-  PFA_DISPATCH_BWD(TC, FP32)
+#define FP32(DD) launch_dq<DD>(ARGS)
+  PFA_DISPATCH(TC, FP32)
 #undef FP32
 #undef TC
 #undef ARGS
@@ -1164,8 +1408,8 @@ int pfa_bwd_dkv(const void* q, const void* k, const void* v, const void* seg_q,
       static_cast<const float*>(lse), static_cast<const float*>(delta), dk, dv, B, KH, G, \
       Sq, Sk, causal, window, static_cast<cudaStream_t>(stream)
 #define TC(DD) launch_dkv_tc<DD>(ARGS)
-#define FP32(DD) launch_dkv<float, DD>(ARGS)
-  PFA_DISPATCH_BWD(TC, FP32)
+#define FP32(DD) launch_dkv<DD>(ARGS)
+  PFA_DISPATCH(TC, FP32)
 #undef FP32
 #undef TC
 #undef ARGS

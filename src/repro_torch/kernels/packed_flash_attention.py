@@ -12,12 +12,13 @@ Three wrappers, one per kernel: ``flash_fwd`` (K1), ``flash_bwd_dq`` (K2),
 ``flash_bwd_dkv`` (K3).  On a CUDA tensor each launches its kernel from
 ``csrc/packed_flash_attention.cu`` (built on first use, ``kernels/build.py``)
 and counts the launch in ``LAUNCHES``, keyed by kernel, route, head_dim and
-causality.  The route follows the dtype, explicitly: K2 and K3 in bf16 run on
-the tensor cores (``"tensor_core"``, wgmma), in fp32 on the CUDA cores
-(``"cuda_core"``: TF32 would break the fp32 tolerance); K1 runs on the CUDA
-cores in both.  On a CPU tensor each wrapper runs its plain
-version (``fwd_plain``, ``bwd_dq_plain``, ``bwd_dkv_plain``), a blocked
-online softmax in torch with the same mask and sentinel.  The CUDA kernels
+causality.  The route follows the dtype, explicitly: K1, K2 and K3 in bf16
+run on the tensor cores (``"tensor_core"``, wgmma), in fp32 on the CUDA cores
+(``"cuda_core"``: TF32 would break the fp32 tolerance).  There is no fallback:
+a CUDA tensor launches its route's kernel or raises.  On a CPU tensor each
+wrapper runs its plain version (``fwd_plain``, ``bwd_dq_plain``,
+``bwd_dkv_plain``), a blocked online softmax in torch with the same mask
+and sentinel.  The CUDA kernels
 tile at a fixed 64 × 64 and mask the ragged edge themselves; the plain
 versions tile at ``block_q`` × ``block_k`` and take inputs padded to those
 blocks (``kernels/blocking.py``).  Outputs do not depend on the tiling.
@@ -44,14 +45,14 @@ def reset_launches() -> None:
     LAUNCHES.clear()
 
 
-def route_of(kernel: str, dtype) -> str:
-    """Which CUDA kernel a launch takes: the backwards in bf16 run on the
-    tensor cores, everything else on the CUDA cores."""
-    return TENSOR_CORE if kernel != "fwd" and dtype == torch.bfloat16 else CUDA_CORE
+def route_of(dtype) -> str:
+    """Which CUDA kernel a launch takes: K1, K2 and K3 run on the tensor
+    cores in bf16 and on the CUDA cores in fp32."""
+    return TENSOR_CORE if dtype == torch.bfloat16 else CUDA_CORE
 
 
 def _count(kernel: str, q, causal) -> None:
-    LAUNCHES[(kernel, route_of(kernel, q.dtype), q.shape[-1], bool(causal))] += 1
+    LAUNCHES[(kernel, route_of(q.dtype), q.shape[-1], bool(causal))] += 1
 
 
 # --------------------------------------------------------------------------- #
@@ -191,12 +192,15 @@ def _check(kernel, q, k, v, seg_q, seg_k, dout=None, lse=None, delta=None):
     for t in (q, k, v, seg_q, seg_k, *rest):
         if t.device != q.device or not t.is_contiguous():
             raise ValueError("operands must be contiguous on q's CUDA device")
-    tensor_core = route_of(kernel, q.dtype) == TENSOR_CORE
-    # grid y: B * KH for the tensor-core backwards and K3, B * KH * G otherwise
-    grid_y = B * KH if tensor_core or kernel == "bwd_dkv" else B * KH * G
+    tensor_core = route_of(q.dtype) == TENSOR_CORE
+    # grid y: B * KH * G for K1 and the CUDA-core K2, B * KH for the
+    # tensor-core K2 and for K3
+    per_kv_head = kernel == "bwd_dkv" or (kernel == "bwd_dq" and tensor_core)
+    grid_y = B * KH if per_kv_head else B * KH * G
     if grid_y > 65535:
         raise ValueError(f"{kernel}: grid y {grid_y} exceeds the limit of 65535")
-    if tensor_core and any(t.data_ptr() % 16 for t in (q, k, v, dout)):
+    copied = (q, k, v) if dout is None else (q, k, v, dout)
+    if tensor_core and any(t.data_ptr() % 16 for t in copied):
         raise ValueError("the tensor-core kernels copy 16-byte chunks: q, k, v and "
                          "dout must start on a 16-byte boundary")
 

@@ -46,7 +46,7 @@ def _segments(kind, B, S):
     return seg_q.cuda(), seg.cuda()
 
 
-# (B, KH, G, S, D, causal, window, segments): bf16 K2/K3 run on the tensor
+# (B, KH, G, S, D, causal, window, segments): bf16 K1-K3 run on the tensor
 # cores, fp32 on the CUDA cores; both head dims, a prime length, a window
 # spanning tiles, G = 4 bidirectional, rows masked everywhere, packed rows
 CASES = [(1, 2, 2, 131, 64, True, 0, "two"),
@@ -89,7 +89,28 @@ def test_cuda_kernels_match_plain(dtype):
             assert torch.all(outs[0][0][..., :40, :] == 0)
             assert torch.all(outs[0][1][..., :40, :] == 0)
     want = pfa.TENSOR_CORE if dt == torch.bfloat16 else pfa.CUDA_CORE
-    assert {key[1] for key in pfa.LAUNCHES if key[0] != "fwd"} == {want}
+    assert {key[1] for key in pfa.LAUNCHES} == {want}
+    assert {key[0] for key in pfa.LAUNCHES} == {"fwd", "bwd_dq", "bwd_dkv"}
+
+
+@pytest.mark.gpu
+def test_cuda_tensor_core_forward_is_deterministic():
+    """bf16 K1 run twice on the same inputs gives bitwise equal o and lse;
+    rows masked everywhere give o = 0 and lse = -1e30 exactly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for (B, KH, G, S, D, causal, window, kind) in CASES:
+        q, k, v = _case(gen, torch.bfloat16, B, KH, G, S, D)
+        seg_q, seg_k = _segments(kind, B, S)
+        runs = [pfa.flash_fwd(q, k, v, seg_q, seg_k, causal, window, 64, 64)
+                for _ in range(2)]
+        for a, b in zip(*runs):
+            assert torch.equal(a, b)
+        if kind == "masked":
+            o, lse = runs[0]
+            assert torch.all(o[..., :40, :] == 0)
+            assert torch.all(lse[..., :40] == pfa.NEG_INF)
 
 
 @pytest.mark.gpu

@@ -248,13 +248,85 @@ def test_bf16_rounding_of_p_and_ds_stays_within_tolerance(D, causal):
     assert torch.all(rounded[0][..., :40, :] == 0)       # masked rows: exact zeros
 
 
+def _rounded_forward(q, k, v, seg_q, seg_k, causal, bk=64):
+    """The tensor-core K1's arithmetic in plain torch: fp32 scores of the
+    bf16 operands, the online softmax over 64-key tiles, l summed from the
+    fp32 p, then p rounded to bf16 before o += p v; o in bf16, lse f32."""
+    D, S = q.shape[-1], q.shape[-2]
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    pos = torch.arange(S)
+    m = torch.full(q.shape[:-1], pfa.NEG_INF)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qf)
+    for j0 in range(0, S, bk):
+        sl = slice(j0, j0 + bk)
+        mask = seg_q[:, None, None, :, None] == seg_k[:, None, None, None, sl]
+        if causal:
+            mask = mask & (pos[sl][None, :] <= pos[:, None])
+        s = torch.einsum("bkgqd,bksd->bkgqs", qf, kf[:, :, sl]) * D ** -0.5
+        s = torch.where(mask, s, pfa.NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        corr = torch.exp(m - m_new)
+        p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bkgqs,bksd->bkgqd", p.bfloat16().float(), vf[:, :, sl])
+        m = m_new
+    live = l > 0
+    den = torch.clamp(l, min=1e-30)
+    o = torch.where(live[..., None], acc / den[..., None], 0.0)
+    return o.bfloat16(), torch.where(live, m + torch.log(den), pfa.NEG_INF)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [64, 128])
+def test_bf16_rounding_of_p_in_the_forward_stays_within_tolerance(D, causal):
+    """Rounding p to bf16 before P V (what the tensor-core K1 does, l kept
+    from the fp32 p) stays within the smoke's bf16 tolerances of the plain
+    version, which keeps p in fp32, and of the reference's output (the
+    Pallas kernel in interpret mode).  S = 257 (prime), G = 2, packed
+    segments, the first 40 query rows masked everywhere: o = 0 and
+    lse = -1e30 exactly there."""
+    B, KH, G, S = 1, 2, 2, 257
+    rng = np.random.default_rng(29 + D + int(causal))
+    q32 = rng.standard_normal((B, KH, G, S, D)).astype(np.float32)
+    k32, v32 = (rng.standard_normal((B, KH, S, D)).astype(np.float32) for _ in range(2))
+    seg_k = np.zeros((B, S), np.int32)
+    for i, (a, e) in enumerate([(0, 70), (70, 71), (71, 190), (190, 240)]):
+        seg_k[:, a:e] = i + 1                         # 240..256: tail, segment 0
+    seg_q = seg_k.copy()
+    seg_q[:, :40] = 7
+    q, k, v = (torch.tensor(a).bfloat16() for a in (q32, k32, v32))
+    tsq, tsk = torch.tensor(seg_q), torch.tensor(seg_k)
+
+    o, lse = _rounded_forward(q, k, v, tsq, tsk, causal)
+    o_plain, lse_plain = pfa.fwd_plain(q, k, v, tsq, tsk, causal, 0, S, S)
+    bf = jnp.bfloat16
+    o_ref = jpfa.packed_flash_attention_bkgsd(
+        *(jnp.asarray(a, dtype=bf) for a in (q32, k32, v32)), jnp.asarray(seg_q),
+        jnp.asarray(seg_k), causal=causal, window=0, block_q=64, block_k=64,
+        interpret=True)
+    o_ref = torch.tensor(np.asarray(o_ref.astype(jnp.float32)))
+
+    _within_bf16_tol(o, o_plain, "o vs the plain version")
+    _within_bf16_tol(o, o_ref, "o vs the reference")
+    d = o.float() - o_plain.float()
+    print(f"D {D} causal {causal}: ||o - plain|| / ||plain|| "
+          f"{(d.norm() / o_plain.float().norm()).item():.3e}, max|o - plain| / max|plain| "
+          f"{(d.abs().max() / o_plain.float().abs().max()).item():.3e}")
+    dead = torch.zeros(S, dtype=torch.bool)
+    dead[:40] = True
+    assert torch.all(o[..., dead, :] == 0) and torch.all(lse[..., dead] == pfa.NEG_INF)
+    assert torch.all(lse_plain[..., dead] == pfa.NEG_INF)
+    # lse is not rounded to bf16: only the summation order differs
+    torch.testing.assert_close(lse[..., ~dead], lse_plain[..., ~dead], rtol=0, atol=1e-4)
+
+
 def test_route_follows_dtype_and_checks_follow_route():
-    """bf16 K2/K3 take the tensor cores, fp32 and K1 the CUDA cores; the
+    """bf16 K1, K2 and K3 take the tensor cores, fp32 the CUDA cores; the
     argument checks hold each route to its own grid and alignment."""
-    assert pfa.route_of("bwd_dq", torch.bfloat16) == pfa.TENSOR_CORE
-    assert pfa.route_of("bwd_dkv", torch.bfloat16) == pfa.TENSOR_CORE
-    assert pfa.route_of("bwd_dq", torch.float32) == pfa.CUDA_CORE
-    assert pfa.route_of("fwd", torch.bfloat16) == pfa.CUDA_CORE
+    assert pfa.route_of(torch.bfloat16) == pfa.TENSOR_CORE
+    assert pfa.route_of(torch.float32) == pfa.CUDA_CORE
     B, KH, G, S, D = 1, 2, 2, 16, 64
     seg = torch.ones(B, S, dtype=torch.int32)
     row = torch.zeros(B, KH, G, S)
@@ -264,22 +336,24 @@ def test_route_follows_dtype_and_checks_follow_route():
         k = torch.zeros(B, KH, S, D, dtype=dt)
         return (q, k, k, seg, seg, torch.zeros_like(q), row, row)
 
-    for kernel in ("bwd_dq", "bwd_dkv"):
-        pfa._check(kernel, *args(torch.bfloat16))                  # accepted
-        pfa._check(kernel, *args(torch.float32))
+    for kernel in ("fwd", "bwd_dq", "bwd_dkv"):
+        n = 5 if kernel == "fwd" else 8          # K1 takes no dout, lse, delta
+        pfa._check(kernel, *args(torch.bfloat16)[:n])             # accepted
+        pfa._check(kernel, *args(torch.float32)[:n])
         # a view that starts 2 bytes into its storage: no 16-byte cp.async
         buf = torch.zeros(B * KH * G * S * D + 1, dtype=torch.bfloat16)
         q_off = buf[1:].view(B, KH, G, S, D)
         with pytest.raises(ValueError, match="16-byte"):
-            pfa._check(kernel, *args(torch.bfloat16, q_off)[:5], torch.zeros_like(q_off),
-                       row, row)
-    # grid y: B * KH on the tensor-core route and for K3, B * KH * G otherwise
+            pfa._check(kernel, *args(torch.bfloat16, q_off)[:n])
+    # grid y: B * KH for the tensor-core K2 and for K3, B * KH * G for K1
+    # and the CUDA-core K2
     big_g = 40000
     q = torch.zeros(1, 2, big_g, 1, 64, dtype=torch.bfloat16)
     k = torch.zeros(1, 2, 1, 64, dtype=torch.bfloat16)
     s1 = torch.ones(1, 1, dtype=torch.int32)
     r1 = torch.zeros(1, 2, big_g, 1)
     pfa._check("bwd_dq", q, k, k, s1, s1, q, r1, r1)
+    pfa._check("bwd_dkv", q, k, k, s1, s1, q, r1, r1)
     with pytest.raises(ValueError, match="grid y"):
         pfa._check("fwd", q, k, k, s1, s1)
     with pytest.raises(ValueError, match="grid y"):

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Hold the bf16 attention backwards (K2, K3) of this tree against their plain
-versions and, optionally, against another build of the same CUDA source, on
-one NVIDIA card.
+"""Hold the bf16 attention kernels (K1 forward, K2 and K3 backwards) of this
+tree against their plain versions and, optionally, against another build of
+the same CUDA source, on one NVIDIA card.
 
     python3 tools/pfa_ab.py [--baseline path/to/packed_flash_attention.cu]
 
@@ -9,13 +9,17 @@ Builds ``src/repro_torch/kernels/csrc/packed_flash_attention.cu`` (and prints
 the ``-Xptxas -v`` lines of the tensor-core kernels: registers, spills), then
 at small edge cases and at the three attention shapes of the training paths:
 
-- compares dq, dk and dv with ``bwd_dq_plain`` / ``bwd_dkv_plain`` (bf16
-  tolerance: 2e-2 x max|plain|, 1e-2 x ||plain||);
-- with ``--baseline``, builds that source with the same flags, requires its
-  outputs to be bitwise equal to this tree's (for a change that keeps the
-  arithmetic), and times K2 and K3 at the path shapes in turns: baseline,
-  this tree, this tree, baseline (CUDA events, 20 launches each);
-- without it, times this tree's K2 and K3 at the path shapes.
+- compares K1's o with ``fwd_plain`` and dq, dk and dv with
+  ``bwd_dq_plain`` / ``bwd_dkv_plain`` (bf16 tolerance: 2e-2 x max|plain|,
+  1e-2 x ||plain||), and K1's lse with ``fwd_plain``'s (1e-3 absolute on
+  rows that attend anything, exactly -1e30 on rows masked everywhere);
+- with ``--baseline``, builds that source with the same flags, holds its K1
+  against ``fwd_plain`` too (its arithmetic may differ from this tree's),
+  requires its dq, dk, dv to be bitwise equal to this tree's on the same
+  inputs (for a change that keeps the backwards' arithmetic), and times
+  K1, K2 and K3 at the path shapes in turns: baseline, this tree, this
+  tree, baseline (CUDA events, 20 launches each);
+- without it, times this tree's K1, K2 and K3 at the path shapes.
 
 A baseline source is typically the parent commit's file, unpacked with
 ``git archive`` into a directory git ignores.  Exits non-zero on any
@@ -47,11 +51,19 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels import packed_flash_attention as pfa
 
+    def print_ptxas(which, lines):
+        """The tensor-core kernels' -Xptxas -v lines (registers, spills) and
+        any compiler warning."""
+        for i, ln in enumerate(lines):
+            if "tc_kernel" in ln and "Compiling entry" in ln:
+                print(f"ptxas {which}", ln.strip()[-70:], "|",
+                      " | ".join(x.strip() for x in lines[i + 1:i + 3]))
+            elif "arning" in ln:
+                print(f"ptxas {which}", ln.strip())
+
     libs = {"new": build.load("packed_flash_attention")}
-    lines = build.LOG.ptxas.get("packed_flash_attention", [])
-    for i, ln in enumerate(lines):
-        if "tc_kernel" in ln:
-            print("ptxas", ln.strip()[-70:], "|", " | ".join(x.strip() for x in lines[i + 1:i + 3]))
+    print_ptxas("new", build.LOG.ptxas.get("packed_flash_attention",
+                                           ["(library loaded from the build cache)"]))
     if args.baseline:
         src = open(args.baseline, "rb").read()
         out = os.path.join(str(build.BUILD_DIR),
@@ -61,6 +73,9 @@ def main() -> int:
         if proc.returncode != 0:
             print(proc.stdout + proc.stderr, file=sys.stderr)
             return 1
+        print_ptxas("baseline", [ln for ln in (proc.stdout + proc.stderr).splitlines()
+                                 if "registers" in ln or "spill" in ln or "Compiling entry" in ln
+                                 or "arning" in ln])
         lib = ctypes.CDLL(out)
         for fn, argtypes in build.SIGNATURES["packed_flash_attention"].items():
             getattr(lib, fn).argtypes = argtypes
@@ -82,14 +97,16 @@ def main() -> int:
         return seg.to(dev)
 
     def case(B, KH, G, S, D, causal, window, seg_q, seg_k=None):
+        """K1's and K2/K3's arguments; the backwards take this tree's o, lse."""
         rnd = lambda *s: torch.randn(*s, generator=gen, device=dev).to(torch.bfloat16)  # noqa: E731
         q, k, v = rnd(B, KH, G, S, D), rnd(B, KH, S, D), rnd(B, KH, S, D)
         do = rnd(B, KH, G, S, D)
         seg_k = seg_q if seg_k is None else seg_k
+        fwd_args = (q, k, v, seg_q, seg_k, causal, window, 64, 64)
         use("new")
-        o, lse = pfa.flash_fwd(q, k, v, seg_q, seg_k, causal, window, 64, 64)
+        o, lse = pfa.flash_fwd(*fwd_args)
         delta = torch.sum(do.float() * o.float(), -1).contiguous()
-        return (q, k, v, seg_q, seg_k, do, lse, delta, causal, window, 64, 64)
+        return fwd_args, (q, k, v, seg_q, seg_k, do, lse, delta, causal, window, 64, 64)
 
     masked = segments(200, [[0, 200]])
     masked[:, :40] = 7                          # 40 query rows attend nothing
@@ -109,6 +126,18 @@ def main() -> int:
     }
     timed = ("encoder", "llm", "jamba")
 
+    def errors(got, ref):
+        """(||err|| / ||plain||, max|err| / max|plain|) of each output."""
+        rel, mx = [], []
+        for g, r in zip(got, ref):
+            d, r = g.float() - r.float(), r.float()
+            rel.append((d.norm() / r.norm()).item())
+            mx.append((d.abs().max() / r.abs().max()).item())
+        return rel, mx
+
+    def fmt(xs):
+        return "[" + ", ".join(f"{x:.2e}" for x in xs) + "]"
+
     def cuda_ms(fn):
         for _ in range(3):
             fn()
@@ -123,24 +152,34 @@ def main() -> int:
 
     ok_all = True
     for name, c in cases.items():
-        a = case(*c)
+        fa, a = case(*c)
+        o_plain, lse_plain = pfa.fwd_plain(*fa[:-2], 256, 256)
+        dead = lse_plain == pfa.NEG_INF
+        for which in libs:
+            use(which)
+            o, lse = pfa.flash_fwd(*fa)
+            rel, mx = errors((o,), (o_plain,))
+            lse_err = (lse - lse_plain)[~dead].abs().max().item() if (~dead).any() else 0.0
+            ok = (rel[0] <= 1e-2 and mx[0] <= 2e-2 and lse_err <= 1e-3
+                  and torch.equal(lse[dead], lse_plain[dead])
+                  and bool(torch.all(o[dead] == 0)))
+            ok_all &= ok
+            print(f"{name}: K1 {which} vs plain {'OK' if ok else 'FAIL'} o ||err||/||plain|| "
+                  f"{rel[0]:.2e}, max|err|/max|plain| {mx[0]:.2e}; lse max|err| {lse_err:.2e} "
+                  f"on live rows, {int(dead.sum())} rows masked everywhere", flush=True)
         outs = {}
         for which in libs:
             use(which)
             outs[which] = (pfa.flash_bwd_dq(*a), *pfa.flash_bwd_dkv(*a))
         plain = (pfa.bwd_dq_plain(*a), *pfa.bwd_dkv_plain(*a))
         torch.cuda.synchronize()
-        rel, mx = [], []
-        for got, ref in zip(outs["new"], plain):
-            d, r = got.float() - ref.float(), ref.float()
-            rel.append((d.norm() / r.norm()).item())
-            mx.append((d.abs().max() / r.abs().max()).item())
+        rel, mx = errors(outs["new"], plain)
         ok = all(x <= 1e-2 for x in rel) and all(x <= 2e-2 for x in mx)
         same = "baseline" not in libs or all(
             torch.equal(x, y) for x, y in zip(outs["new"], outs["baseline"]))
         ok_all &= ok and same
-        print(f"{name}: vs plain {'OK' if ok else 'FAIL'} ||err||/||plain|| "
-              f"{[f'{x:.2e}' for x in rel]}, max|err|/max|plain| {[f'{x:.2e}' for x in mx]}"
+        print(f"{name}: K2/K3 vs plain {'OK' if ok else 'FAIL'} ||err||/||plain|| {fmt(rel)}, "
+              f"max|err|/max|plain| {fmt(mx)}"
               + ("" if "baseline" not in libs else
                  f"; vs baseline {'bitwise equal' if same else 'DIFFER'}"), flush=True)
         if name in timed:
@@ -148,7 +187,8 @@ def main() -> int:
             times = []
             for which in order:
                 use(which)
-                times.append(f"{which}: K2 {cuda_ms(lambda: pfa.flash_bwd_dq(*a)):.4f} "
+                times.append(f"{which}: K1 {cuda_ms(lambda: pfa.flash_fwd(*fa)):.4f} "
+                             f"K2 {cuda_ms(lambda: pfa.flash_bwd_dq(*a)):.4f} "
                              f"K3 {cuda_ms(lambda: pfa.flash_bwd_dkv(*a)):.4f} ms")
             print(f"{name}: " + ", ".join(times), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
