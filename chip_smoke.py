@@ -9,13 +9,15 @@ Phases, each reported on its own lines:
                 ``src/repro_torch/kernels/csrc`` side by side (one ``nvcc`` each)
                 and prints the ``-Xptxas -v`` register / shared-memory lines;
   3. compare  — each kernel against its plain PyTorch version on the card:
-                K1 forward and K2/K3 gradients at the three attention shapes of
-                the paths (bf16) and at small edge cases in bf16 (K1–K3 on the
-                tensor cores) and in fp32 (K1–K3 on the CUDA cores): prime
-                length, a window spanning tiles, G = 4, rows masked everywhere,
-                packed segments; K1 and K2/K3 run twice on each bf16 case must
-                give bitwise equal o, lse, dq, dk, dv; rows masked everywhere
-                give o = 0, lse = -1e30 and dq = 0 exactly; K4–K7 outputs and gradients
+                K1 forward and K2/K3 gradients at the six attention shapes
+                (bf16: InternVL2-2B's encoder and LLM, Jamba's, LLaVA-OV's SigLIP
+                at D 72 and Qwen2.5 at G 7, a gemma-2b-shaped D 256) and at small
+                edge cases in bf16 (K1–K3 on the tensor cores) and in fp32 (K1–K3
+                on the CUDA cores) at head dims 24, 32, 64, 72, 80, 128 and 256:
+                prime length, a window spanning tiles, G = 4, 7 and 8, rows masked
+                everywhere, packed segments; K1 and K2/K3 run twice on each bf16
+                case must give bitwise equal o, lse, dq, dk, dv; rows masked
+                everywhere give o = 0, lse = -1e30 and dq = 0 exactly; K4–K7 outputs and gradients
                 (through their autograd Functions) at RWKV6-7B's and Jamba's
                 scan shapes (bf16) and at small fp32 cases (prime lengths,
                 several chunks, B > 1, a nonzero final-state cotangent for K7);
@@ -24,21 +26,27 @@ Phases, each reported on its own lines:
                 where one exists (SDPA for K1–K3; none computes a scan);
   5. train    — 3 AdamW steps of InternVL2-2B at full width and depth on the
                 paper's mixed data (items that fill the media window; see
-                ``rows``); launch counts of K1–K3 over those steps, by route
+                ``mllm_batch``); launch counts of K1–K3 over those steps, by route
                 (every K1/K2/K3 launch must take the tensor cores); then one more
                 step under ``torch.profiler``: device time per kernel name for
                 K1–K3 and the device's idle share over the step;
   6. paths    — at full width and 2+2 layers, loss and gradients with the
                 kernels against the same step through the naive attention
                 (the oracle that materializes the scores);
-  7. decoders — 3 AdamW steps each of RWKV6-7B and Jamba-v0.1 (dense FFNs)
+  7. llava    — 3 AdamW steps of LLaVA-OV-Qwen2.5-7B: SigLIP-SO400M at its 27
+                layers, Qwen2.5-7B at full width cut to 8 layers, on items of 5
+                or more images (729 patches each, a 3645-token window); K1–K3 must
+                launch on the tensor cores at the SigLIP shape (D 72) and the
+                Qwen2.5 shape (D 128, G 7); one more step under ``torch.profiler``
+                as in phase 5; then its path check as in phase 6;
+  8. decoders — 3 AdamW steps each of RWKV6-7B and Jamba-v0.1 (dense FFNs)
                 at full width, depth cut to 8 layers, on rows packed by
                 ``pack_items`` from the mixed data; launch counts of K4–K7 and
                 of K1–K3 at Jamba's attention shape per step (K1–K3 on the
                 tensor cores);
-  8. ssm paths— at full width and 2 layers, each decoder with the scan
+  9. ssm paths— at full width and 2 layers, each decoder with the scan
                 kernels against the naive scans (Python loops over time);
-  9. summary  — one JSON line of the kernels, the card line, then the result.
+ 10. summary  — one JSON line of the kernels, the card line, then the result.
 
 Counts are set to 0 just before a training path and read just after it.
 Any failed check raises and the script exits non-zero.
@@ -86,6 +94,15 @@ DEC_LAYERS, DEC_S, DEC_MB, DEC_ROWS, DEC_TPM = 8, 4096, 2, 2, 256
 # The naive scans' autograd keeps every step's state: the ssm-path check
 # runs one microbatch of 2 rows of this length.
 PATH_S = 1024
+# LLaVA-OV-Qwen2.5-7B's training rows: 729 SigLIP patches per image, a
+# 5-image media window (3645 tokens, pooled by 3645 // 196 = 18 to 202 LLM
+# tokens, a 9-token tail dropped) and 1024 text tokens.  Qwen2.5 cut from 28
+# to 8 layers: fp32 parameters, gradients and AdamW moments take 16 B a
+# parameter, 7.615 B parameters at 28 layers would need ~122 GB.
+LLAVA_TPM, LLAVA_MEDIA, LLAVA_TEXT, LLAVA_LAYERS = 729, 5 * 729, 1024, 8
+# gemma-2b's attention (head_dim 256, MQA over 8 query heads): timed beside
+# the paths' shapes; no training path runs it yet.
+GEMMA = dict(KH=1, G=8, D=256)
 # Kernel vs plain, per output, both relative to the plain output itself:
 # (max|err| / max|plain|, ||err|| / ||plain||).  In bf16 both sides round
 # their fp32 results once (2^-8 relative), so they differ by about one bf16
@@ -122,7 +139,7 @@ def main() -> int:
     import numpy as np
 
     from repro_torch.common.pytree import global_norm, tree_leaves, tree_paths
-    from repro_torch.configs import internvl2_2b, jamba_v0_1_52b, rwkv6_7b
+    from repro_torch.configs import internvl2_2b, jamba_v0_1_52b, llava_ov_qwen7b, rwkv6_7b
     from repro_torch.data.packing import pack_items
     from repro_torch.data.synthetic import MixedDataset
     from repro_torch.kernels import bench, build, mamba_scan, rwkv6_scan
@@ -227,6 +244,11 @@ def main() -> int:
 
     enc, llm_cfg = internvl2_2b.ENCODER, internvl2_2b.LLM
     S_ENC, S_LLM = 4096, 256 + 1024
+    llava_cfg = dataclasses.replace(llava_ov_qwen7b.CFG, llm=dataclasses.replace(
+        llava_ov_qwen7b.LLM, n_layers=LLAVA_LAYERS))
+    sig, qwen = llava_cfg.encoder, llava_cfg.llm
+    LLAVA_POOLED = LLAVA_MEDIA // (LLAVA_MEDIA // llava_cfg.tokens_per_item_out)   # 202
+    S_QWEN = LLAVA_POOLED + LLAVA_TEXT
     path_shapes = {
         # encoder: media mask -> segments {1 real, 0 padded tail}
         "encoder": dict(B=2, KH=enc.n_kv_heads, G=enc.n_heads // enc.n_kv_heads,
@@ -242,6 +264,16 @@ def main() -> int:
                       G=jamba_cfg.n_heads // jamba_cfg.n_kv_heads, S=DEC_S,
                       D=jamba_cfg.head_dim, causal=True,
                       seg=torch.as_tensor(dec_batches["jamba"][0]["segment_ids"][0])),
+        # LLaVA-OV's SigLIP (D 72): rows of 5 or more images fill the window
+        "siglip": dict(B=2, KH=sig.n_kv_heads, G=sig.n_heads // sig.n_kv_heads,
+                       S=LLAVA_MEDIA, D=sig.head_dim, causal=False,
+                       seg=seg_rows(LLAVA_MEDIA, [LLAVA_MEDIA, LLAVA_MEDIA])),
+        # its Qwen2.5 LLM (D 128, G 7): 202 pooled media tokens + text
+        "qwen": dict(B=2, KH=qwen.n_kv_heads, G=qwen.n_heads // qwen.n_kv_heads,
+                     S=S_QWEN, D=qwen.head_dim, causal=True,
+                     seg=seg_rows(S_QWEN, [LLAVA_POOLED + 700, S_QWEN])),
+        # gemma-2b-shaped (D 256): timed only
+        "gemma": dict(B=2, S=4096, causal=True, seg=seg_rows(4096, [4096, 4096]), **GEMMA),
     }
     masked = seg_rows(200, [200])
     masked[:, :40] = 7                              # 40 rows attend nothing
@@ -267,6 +299,28 @@ def main() -> int:
             f"masked_rows_D128/{tag}": make_case(1, 2, 2, 200, 128, dt, True, 0, masked,
                                                  seg_rows(200, [200])),
             f"packed_segments_D128/{tag}": make_case(2, 2, 2, 300, 128, dt, True, 0, packed),
+            # the other head dims of the reference's configs, each in a tile of
+            # 64, 128 or 256 columns: the softmax scale must be D^-0.5 of the
+            # real D (fp32 at 1e-4 catches the tile width's scale)
+            f"prime_S257_D24/{tag}": make_case(1, 2, 2, 257, 24, dt, True, 0,
+                                               seg_rows(257, [257])),
+            f"G7_S131_D32_bidir/{tag}": make_case(1, 1, 7, 131, 32, dt, False, 0,
+                                                  seg_rows(131, [131])),
+            f"G7_prime_S257_D72_bidir/{tag}": make_case(1, 2, 7, 257, 72, dt, False, 0,
+                                                        seg_rows(257, [200])),
+            f"masked_rows_D72/{tag}": make_case(1, 2, 2, 200, 72, dt, True, 0, masked,
+                                                seg_rows(200, [200])),
+            f"packed_segments_D72/{tag}": make_case(2, 1, 7, 300, 72, dt, True, 0, packed),
+            f"prime_S257_D80/{tag}": make_case(1, 2, 2, 257, 80, dt, True, 0,
+                                               seg_rows(257, [257])),
+            f"packed_segments_D80/{tag}": make_case(2, 2, 2, 300, 80, dt, True, 0, packed),
+            f"G7_S131_D128/{tag}": make_case(1, 1, 7, 131, 128, dt, True, 0,
+                                             seg_rows(131, [131])),
+            f"prime_S257_D256_G8/{tag}": make_case(1, 1, 8, 257, 256, dt, True, 0,
+                                                   seg_rows(257, [257])),
+            f"masked_rows_D256/{tag}": make_case(1, 1, 2, 200, 256, dt, True, 0, masked,
+                                                 seg_rows(200, [200])),
+            f"packed_segments_D256/{tag}": make_case(2, 1, 2, 300, 256, dt, False, 0, packed),
         })
 
     def kernels_twice(c):
@@ -297,15 +351,17 @@ def main() -> int:
                 f"{'bitwise equal' if same else 'DIFFER'}")
             if not same:
                 raise SystemExit(f"K1-K3 are not deterministic: {cname}")
-    for tag in ("f32", "bf16"):
-        c = cases[f"masked_rows/{tag}"]
+    for cname in [n for n in cases if n.startswith("masked_rows")]:
+        c = cases[cname]
         o, lse = pfa.flash_fwd(c["q"], c["k"], c["v"], c["seg_q"], c["seg_k"],
                                True, 0, 64, 64)
         if not (torch.all(o[..., :40, :] == 0) and torch.all(lse[..., :40] == pfa.NEG_INF)):
-            raise SystemExit("rows masked everywhere must give o = 0, lse = -1e30")
+            raise SystemExit(f"rows masked everywhere must give o = 0, lse = -1e30 ({cname})")
         dq = kernels_twice(c)[0][2]
         if not torch.all(dq[..., :40, :] == 0):
-            raise SystemExit(f"rows masked everywhere must give dq = 0 ({tag})")
+            raise SystemExit(f"rows masked everywhere must give dq = 0 ({cname})")
+    log("[compare] rows masked everywhere: o = 0, lse = -1e30 and dq = 0 exactly at "
+        "D 64, 72, 128 and 256, bf16 and fp32")
     log(f"[compare] launches of the comparisons, by route: {dict(pfa.LAUNCHES)}")
     del cases
     torch.cuda.empty_cache()
@@ -530,6 +586,16 @@ def main() -> int:
     log(f"[timing] the reference's WKV count (bench.rwkv6_flops, 6 per state element "
         f"and step) would be {bench.rwkv6_flops(*dims_r) / 1e9:.2f} GFLOP for K6")
 
+    # Launches at the gemma-shaped key (bf16, D 256, causal), summed over every
+    # training phase's 3 steps: each phase adds its counts before the next resets
+    # them.  No path trains head dim 256, so the sum reads 0 unless one does.
+    gemma_launches = {kn: 0 for kn in COUNTER}
+
+    def count_gemma():
+        for kn in COUNTER:
+            gemma_launches[kn] += pfa.LAUNCHES[(COUNTER[kn], pfa.route_of(torch.bfloat16),
+                                                GEMMA["D"], path_shapes["gemma"]["causal"])]
+
     def check_routes(tag):
         """Fail unless every K1/K2/K3 launch since the last reset took the
         tensor cores (the training paths run in bf16)."""
@@ -586,9 +652,12 @@ def main() -> int:
             f"device events, {len(per_name)} kernel names")
         for kn, frag in TRACE_NAME.items():
             for shape in shapes:
+                # the instantiation: tile width, and whether the head dim pads it
                 D = path_shapes[shape]["D"]
+                tile = next(w for w in (64, 128, 256) if D <= w)
+                inst = f"<{tile}, {'true' if D < tile else 'false'}>"
                 hits = [(nm, tot, n) for nm, (tot, n) in per_name.items()
-                        if frag in nm and f"{D}>" in nm]
+                        if frag in nm and inst in nm]
                 tot = sum(t for _, t, _ in hits)
                 n = sum(c for _, _, c in hits)
                 iso = timing[(kn, shape)]["ms"]
@@ -603,78 +672,92 @@ def main() -> int:
             log(f"[profile] {tag} top: {tot / 1e3:9.3f} ms {n:5d} x {nm[:110]}")
 
     # 5. train: InternVL2-2B, full width and depth ------------------------- #
-    cfg = internvl2_2b.CFG
-    ds = MixedDataset("mixed", seed=0, tokens_per_media_item=1024)
-    MAX_MEDIA, MAX_TEXT = 4096, 1024
-
-    def rows(n, fill_media):
-        """``n`` items of the mix; with ``fill_media`` only items whose media
-        fill the 4096-token window.  A zero-padded media tail makes the
-        encoder's gradients non-finite at full depth, in the reference as
-        in the port (RMSNorm at x = 0 amplifies by eps^-1/2 per norm over 48
-        norms); see ROADMAP Queue 3."""
-        items = []
-        while len(items) < n:
-            it = ds.sample(1)[0]
-            if not fill_media or it.n_media_items * ds.tokens_per_media_item >= MAX_MEDIA:
-                items.append(it)
-        return items
-
-    def batch(seed, fill_media=True):
-        mbs = [ds.materialize(rows(2, fill_media), embed_dim=cfg.stub.embed_dim,
-                              vocab_size=cfg.vocab_size, max_media=MAX_MEDIA,
-                              max_text=MAX_TEXT, seed=seed * 10 + i) for i in range(2)]
+    def mllm_batch(ds, cfg, max_media, max_text, seed, fill_media=True):
+        """2 microbatches x 2 rows of the mix; with ``fill_media`` only items
+        whose media fill the ``max_media``-token window.  A zero-padded media
+        tail makes the encoder's gradients non-finite at full depth, in the
+        reference as in the port (RMSNorm at x = 0 amplifies by eps^-1/2 per
+        norm over 48 norms); see ROADMAP Queue 3."""
+        mbs = []
+        for i in range(2):
+            items = []
+            while len(items) < 2:
+                it = ds.sample(1)[0]
+                if not fill_media or it.n_media_items * ds.tokens_per_media_item >= max_media:
+                    items.append(it)
+            mbs.append(ds.materialize(items, embed_dim=cfg.stub.embed_dim,
+                                      vocab_size=cfg.llm.vocab_size, max_media=max_media,
+                                      max_text=max_text, seed=seed * 10 + i))
         return step.as_tensors({k: np.stack([m[k] for m in mbs]) for k in mbs[0]},
                                device=dev)
 
-    t0 = time.perf_counter()
-    params = mllm.init(cfg, seed=0, device=dev)
-    opt = optim.adamw_init(params)
-    n_params = sum(p.numel() for p in tree_leaves(params))
-    torch.cuda.synchronize()
-    log(f"[train] {cfg.name}: {n_params / 1e9:.3f} B params (fp32), encoder "
-        f"{cfg.encoder.n_layers} x d{cfg.encoder.d_model}, LLM {cfg.llm.n_layers} x "
-        f"d{cfg.llm.d_model}; init {time.perf_counter() - t0:.1f} s")
-    batches = [batch(s) for s in range(3)]
-    train_step = step.make_train_step(cfg, optim.AdamWConfig(), ctx=FwdCtx())
-    torch.cuda.reset_peak_memory_stats()
-    pfa.reset_launches()
-    steps = []
-    for i, b in enumerate(batches):
+    def train_mllm(tag, cfg, batches, shapes):
+        """3 AdamW steps of ``cfg`` on ``batches``; fails on a non-finite loss,
+        unless K1, K2 and K3 each launched at every one of ``shapes`` (by
+        head_dim and causality), or if any launch left the tensor cores.
+        Returns (params, opt, steps, launches by (kernel, shape))."""
         t0 = time.perf_counter()
-        params, opt, m = train_step(params, opt, b, 3e-4)
-        loss = m["loss"].item()
+        params = mllm.init(cfg, seed=0, device=dev)
+        opt = optim.adamw_init(params)
+        n_params = sum(p.numel() for p in tree_leaves(params))
         torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        steps.append({"loss": loss, "seconds": dt,
-                      "media_tokens": int(b["media_mask"].sum()),
-                      "text_tokens": int(b["text_mask"].sum())})
-        log(f"[train] step {i}: loss {loss:.5f}, {dt:.3f} s, media tokens "
-            f"{steps[-1]['media_tokens']}, text tokens {steps[-1]['text_tokens']} "
-            f"(rows: {b['text_mask'].sum(-1).tolist()} text)")
-        if not math.isfinite(loss):
-            raise SystemExit("non-finite loss")
-    # launches per kernel and per path shape, over the 3 steps, on the route
-    # each kernel must take in bf16 (the tensor cores)
+        log(f"[train] {cfg.name}: {n_params / 1e9:.3f} B params (fp32), encoder "
+            f"{cfg.encoder.n_layers} x d{cfg.encoder.d_model} (head_dim "
+            f"{cfg.encoder.head_dim}), LLM {cfg.llm.n_layers} x d{cfg.llm.d_model} "
+            f"(head_dim {cfg.llm.head_dim}, G {cfg.llm.n_heads // cfg.llm.n_kv_heads}); "
+            f"init {time.perf_counter() - t0:.1f} s")
+        train_step = step.make_train_step(cfg, optim.AdamWConfig(), ctx=FwdCtx())
+        torch.cuda.reset_peak_memory_stats()
+        pfa.reset_launches()
+        steps = []
+        for i, b in enumerate(batches):
+            t0 = time.perf_counter()
+            params, opt, m = train_step(params, opt, b, 3e-4)
+            loss = m["loss"].item()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            steps.append({"loss": loss, "seconds": dt,
+                          "media_tokens": int(b["media_mask"].sum()),
+                          "text_tokens": int(b["text_mask"].sum())})
+            log(f"[train] {tag} step {i}: loss {loss:.5f}, {dt:.3f} s, media tokens "
+                f"{steps[-1]['media_tokens']}, text tokens {steps[-1]['text_tokens']} "
+                f"(rows: {b['text_mask'].sum(-1).tolist()} text)")
+            if not math.isfinite(loss):
+                raise SystemExit(f"{tag}: non-finite loss")
+        count_gemma()
+        # launches per kernel and per path shape, over the 3 steps, on the route
+        # each kernel must take in bf16 (the tensor cores)
+        counts = {(kn, shape): pfa.LAUNCHES[(COUNTER[kn], pfa.route_of(torch.bfloat16),
+                                             path_shapes[shape]["D"],
+                                             path_shapes[shape]["causal"])]
+                  for shape in shapes for kn in COUNTER}
+        peak = torch.cuda.max_memory_allocated()
+        for shape in shapes:
+            n = [counts[(kn, shape)] for kn in COUNTER]
+            log(f"[train] {tag} launches over 3 steps, {shape} (D {path_shapes[shape]['D']}, "
+                f"causal {path_shapes[shape]['causal']}): K1 {n[0]}, K2 {n[1]}, K3 {n[2]} "
+                f"(per step {n[0] / 3:g}/{n[1] / 3:g}/{n[2] / 3:g})")
+        log(f"[train] {tag} all launches (kernel, route, head_dim, causal): "
+            f"{dict(pfa.LAUNCHES)}; max_memory_allocated {peak / 2**30:.2f} GiB")
+        if min(counts.values()) == 0:
+            raise SystemExit(f"{tag}: a kernel was not launched on the main path: {counts}")
+        check_routes(tag)
+        if peak >= 80e9:
+            raise SystemExit(f"{tag}: peak {peak / 1e9:.1f} GB is not under 80 GB")
+        return params, opt, steps, counts
+
+    cfg = internvl2_2b.CFG
+    ds = MixedDataset("mixed", seed=0, tokens_per_media_item=1024)
+    MAX_MEDIA, MAX_TEXT = 4096, 1024
+    batches = [mllm_batch(ds, cfg, MAX_MEDIA, MAX_TEXT, s) for s in range(3)]
     mllm_shapes = ("encoder", "llm")
-    launches = {(kn, shape): pfa.LAUNCHES[(COUNTER[kn], pfa.route_of(torch.bfloat16),
-                                           path_shapes[shape]["D"], path_shapes[shape]["causal"])]
-                for shape in mllm_shapes for kn in COUNTER}
-    peak = torch.cuda.max_memory_allocated()
-    for shape in mllm_shapes:
-        n = [launches[(kn, shape)] for kn in COUNTER]
-        log(f"[train] launches over 3 steps, {shape}: K1 {n[0]}, K2 {n[1]}, K3 {n[2]} "
-            f"(per step {n[0] / 3:g}/{n[1] / 3:g}/{n[2] / 3:g})")
-    log(f"[train] all launches (kernel, route, head_dim, causal): {dict(pfa.LAUNCHES)}; "
-        f"max_memory_allocated {peak / 2**30:.2f} GiB")
-    if min(launches.values()) == 0:
-        raise SystemExit(f"a kernel was not launched on the main path: {launches}")
-    check_routes("InternVL2-2B")
+    params, opt, steps, launches = train_mllm("InternVL2-2B", cfg, batches, mllm_shapes)
+    train_step = step.make_train_step(cfg, optim.AdamWConfig(), ctx=FwdCtx())
 
     # one more step under the profiler: device time per kernel name, idle share
     profile_step(lambda: train_step(params, opt, batches[0], 3e-4), "InternVL2-2B",
                  mllm_shapes, sum(st["seconds"] for st in steps[1:]) / len(steps[1:]))
-    del params, opt, batches, train_step, b
+    del params, opt, batches, train_step
     torch.cuda.empty_cache()
 
     # 6. kernel path vs naive path (full width, 2 + 2 layers) -------------- #
@@ -709,20 +792,42 @@ def main() -> int:
             if not (math.isfinite(rels[key]) and rels[key] <= tol):
                 raise SystemExit(f"{tag}: kernel path and naive path disagree on {key}")
 
-    cfg2 = dataclasses.replace(
-        cfg, encoder=dataclasses.replace(cfg.encoder, n_layers=2),
-        llm=dataclasses.replace(cfg.llm, n_layers=2))
-    params2 = mllm.init(cfg2, seed=1, device=dev)
-    # the unfiltered mix: rows with padded media and padded text
-    mb = {k: v[0] for k, v in batch(7, fill_media=False).items()}
-    log(f"[paths] media per row {mb['media_mask'].sum(-1).tolist()}, "
-        f"text per row {mb['text_mask'].sum(-1).tolist()}")
-    path_gap("paths attn_impl", lambda impl: step.make_loss_fn(cfg2, FwdCtx(attn_impl=impl)),
-             params2, mb)
-    del params2, mb
-    torch.cuda.empty_cache()
+    def mllm_path_gap(tag, cfg, mb):
+        """``cfg`` at 2 + 2 layers, kernel path vs naive path on ``mb``."""
+        cfg2 = dataclasses.replace(
+            cfg, encoder=dataclasses.replace(cfg.encoder, n_layers=2),
+            llm=dataclasses.replace(cfg.llm, n_layers=2))
+        params2 = mllm.init(cfg2, seed=1, device=dev)
+        log(f"[{tag}] media per row {mb['media_mask'].sum(-1).tolist()}, "
+            f"text per row {mb['text_mask'].sum(-1).tolist()}")
+        path_gap(f"{tag} attn_impl",
+                 lambda impl: step.make_loss_fn(cfg2, FwdCtx(attn_impl=impl)), params2, mb)
+        del params2
+        torch.cuda.empty_cache()
 
-    # 7. train: RWKV6-7B and Jamba, full width, 8 layers ------------------ #
+    # the unfiltered mix: rows with padded media and padded text
+    mllm_path_gap("paths", cfg, {k: v[0] for k, v in mllm_batch(
+        ds, cfg, MAX_MEDIA, MAX_TEXT, 7, fill_media=False).items()})
+
+    # 7. train: LLaVA-OV-Qwen2.5-7B, SigLIP at 27 layers, Qwen2.5 at 8 ---- #
+    lds = MixedDataset("mixed", seed=0, tokens_per_media_item=LLAVA_TPM)
+    llava_shapes = ("siglip", "qwen")
+    batches = [mllm_batch(lds, llava_cfg, LLAVA_MEDIA, LLAVA_TEXT, s) for s in range(3)]
+    log(f"[train] LLaVA-OV: Qwen2.5 cut from {llava_ov_qwen7b.LLM.n_layers} to "
+        f"{llava_cfg.llm.n_layers} layers; {LLAVA_MEDIA} media tokens a row pooled to "
+        f"{LLAVA_POOLED}, {LLAVA_TEXT} text tokens")
+    params, opt, steps, counts = train_mllm("LLaVA-OV-Qwen2.5-7B", llava_cfg, batches,
+                                            llava_shapes)
+    launches.update(counts)
+    train_step = step.make_train_step(llava_cfg, optim.AdamWConfig(), ctx=FwdCtx())
+    profile_step(lambda: train_step(params, opt, batches[0], 3e-4), "LLaVA-OV-Qwen2.5-7B",
+                 llava_shapes, sum(st["seconds"] for st in steps[1:]) / len(steps[1:]))
+    del params, opt, batches, train_step
+    torch.cuda.empty_cache()
+    mllm_path_gap("llava paths", llava_cfg, {k: v[0] for k, v in mllm_batch(
+        lds, llava_cfg, LLAVA_MEDIA, LLAVA_TEXT, 7, fill_media=False).items()})
+
+    # 8. train: RWKV6-7B and Jamba, full width, 8 layers ------------------ #
     def reset_counts():
         for mod in (pfa, mamba_scan, rwkv6_scan):
             mod.reset_launches()
@@ -752,6 +857,7 @@ def main() -> int:
                 f"{time.perf_counter() - t0:.3f} s, tokens in segments per row {used}")
             if not math.isfinite(loss):
                 raise SystemExit(f"{name}: non-finite loss")
+        count_gemma()
         counts = {("K4", name): mamba_scan.LAUNCHES["fwd"],
                   ("K5", name): mamba_scan.LAUNCHES["bwd"],
                   ("K6", name): rwkv6_scan.LAUNCHES["fwd"],
@@ -775,8 +881,13 @@ def main() -> int:
     if any(dec_counts[key] == 0 for key in on_path):
         raise SystemExit(f"a kernel was not launched on a decoder path: {dec_counts}")
     launches.update({key: dec_counts[key] for key in on_path})
+    # the gemma-shaped attention is timed (phase 4); these are its launches on
+    # the four training paths
+    launches.update({(kn, "gemma"): n for kn, n in gemma_launches.items()})
+    log(f"[train] gemma-shaped (bf16, D {GEMMA['D']}, causal) launches over every training "
+        f"phase: {gemma_launches}")
 
-    # 8. scan kernels vs naive scans (full width, 2 layers) ---------------- #
+    # 9. scan kernels vs naive scans (full width, 2 layers) ---------------- #
     for dec, cfg2 in (("rwkv6-7b", dataclasses.replace(rwkv_cfg, n_layers=2)),
                       ("jamba", dataclasses.replace(jamba_cfg, n_layers=2,
                                                     layer_pattern=("mamba", "attention")))):
@@ -790,14 +901,15 @@ def main() -> int:
         del params2, mb
         torch.cuda.empty_cache()
 
-    # 9. summary ----------------------------------------------------------- #
+    # 10. summary ---------------------------------------------------------- #
     kernels = []
     for (kn, shape), r in timing.items():
         kernels.append({
             "name": f"{kn}_{SCAN_NAME.get(kn) or COUNTER[kn]}[{shape}]", "route": "cuda",
             "source": CSRC + SOURCE[kn], "replaces": REPLACES[kn],
             "launches": launches[(kn, shape)], "max_abs_err": max_err[(kn, shape)],
-            **r})
+            # the gemma-shaped rows are timed and compared, but no path trains them
+            "on_path": shape != "gemma", **r})
     log(f"[summary] wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -7,7 +7,7 @@
 //                                        dv_j = sum_i p_ij^T do_i, summed over the G query
 //                                        heads of a kv head)
 //
-// Semantics are the TPU kernels': q (B, KH, G, Sq, D), k and v (B, KH, Sk, D), all
+// Semantics are the TPU kernels': q (B, KH, G, Sq, hd), k and v (B, KH, Sk, hd), all
 // contiguous, in bf16 or fp32; segment ids (B, S) int32.  The mask is
 // causal AND (qpos - kpos < window when window > 0) AND seg_q == seg_k.
 // Scores, running max / sum, accumulators and gradients are fp32; masked scores
@@ -20,7 +20,20 @@
 // wrapper does.  No kernel uses atomics: every output element is written once, by one
 // block, so the results are bitwise deterministic.
 //
-// Bound on the H100.  At the main path's shapes (S = 1280..4096, D = 64..128) the
+// Head dims.  Each kernel is instantiated at a tile width D of 64, 128 or 256 and takes
+// the head dim hd (a multiple of 8, at most D; the dispatch takes the narrowest D) as an
+// argument: hd is the global row stride, the columns [hd, D) of every tile are loaded
+// as zeros, and only the columns < hd of o, dq, dk and dv are stored.  Zero columns
+// add nothing to S = Q K^T or dP = dO V^T and give zero columns of the outputs, so
+// nothing is padded or copied in device memory; the launchers take the softmax scale
+// from hd, never from D.  D 72 and 80 thus run at the cost of D 128, D 24 and 32 at
+// that of D 64.
+// At D 256 one warpgroup cannot hold both 64 x 256 fp32 accumulators of K3 (256
+// registers a thread), so K3 runs as two blocks per key tile, one for dk and one for
+// dv, each recomputing S (and dP for dk); the fp32 K2 and K3 at D 256 stream their
+// tiles through fewer shared-memory buffers (see bwd_dq_kernel, dkv_body).
+//
+// Bound on the H100.  At the shapes the smoke times (S = 1226..4096, D = 64..256) the
 // work is ~S^2 D operations over ~S D bytes, far above the card's ridge of ~295
 // operations per byte, so every kernel here is bound by the tensor cores' 989 TFLOP/s
 // (bf16) over the (q, k) pairs the mask keeps.
@@ -86,14 +99,15 @@ constexpr int NT = 256;       // threads per block, 16 x 16
 constexpr int PS = BK + 16;   // row stride of p / ds tiles: two half-warps hit disjoint banks
 constexpr float NEG_INF = -1e30f;
 
-// Rows [row0, row0 + 64) of a row-major (S, D) matrix into shared memory with row
-// stride D + 1, as fp32; rows past S are zeros.
+// Rows [row0, row0 + 64) of a row-major (S, hd) matrix into shared memory with row
+// stride D + 1, as fp32; rows past S and columns past hd are zeros.
 template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* src, int row0, int S) {
+__device__ __forceinline__ void load_tile(float* dst, const float* src, int row0, int S,
+                                          int hd) {
   for (int idx = threadIdx.x; idx < BQ * D; idx += NT) {
     const int r = idx / D, c = idx % D;
     const int row = row0 + r;
-    dst[r * (D + 1) + c] = row < S ? src[(size_t)row * D + c] : 0.f;
+    dst[r * (D + 1) + c] = row < S && c < hd ? src[(size_t)row * hd + c] : 0.f;
   }
 }
 
@@ -156,17 +170,61 @@ __device__ __forceinline__ void query_tile_range(int k0, int Sq, int Sk, int cau
   *end = e;
 }
 
+constexpr size_t SMEM_MAX = 232448;       // dynamic shared memory of one block (H100)
+
 template <int D>
 constexpr size_t fwd_smem() {
   return sizeof(float) * (3 * 64 * (D + 1) + BQ * PS) + sizeof(int) * (BQ + BK);
 }
+// K2 holds the Q, dO, K and V tiles; where four do not fit (D 256), K and V take
+// turns in one buffer.
 template <int D>
-constexpr size_t dq_smem() {
-  return sizeof(float) * (4 * 64 * (D + 1) + BQ * PS + 2 * BQ) + sizeof(int) * (BQ + BK);
+__host__ __device__ constexpr int dq_tiles() {
+  return sizeof(float) * (4 * 64 * (D + 1) + BQ * PS + 2 * BQ) + sizeof(int) * (BQ + BK) <=
+                 SMEM_MAX
+             ? 4
+             : 3;
 }
 template <int D>
-constexpr size_t dkv_smem() {
-  return sizeof(float) * (4 * 64 * (D + 1) + 2 * BK * PS + 2 * BQ) + sizeof(int) * (BQ + BK);
+__host__ __device__ constexpr size_t dq_smem() {
+  return sizeof(float) * (dq_tiles<D>() * 64 * (D + 1) + BQ * PS + 2 * BQ) +
+         sizeof(int) * (BQ + BK);
+}
+// K3's blocks compute dk and dv (PART 3: K, V, Q and dO tiles, P^T and dS^T), dk alone
+// (PART 1: K, V and one buffer that takes dO, then Q; dS^T) or dv alone (PART 2: K, Q,
+// dO; P^T).  Where PART 3 does not fit (D 256), each key tile takes a PART 1 block and
+// a PART 2 block.
+template <int D, int PART>
+__host__ __device__ constexpr size_t dkv_smem() {
+  return sizeof(float) * ((PART == 3 ? 4 : 3) * 64 * (D + 1) +
+                          ((PART & 1) + (PART >> 1)) * BK * PS + 2 * BQ) +
+         sizeof(int) * (BQ + BK);
+}
+template <int D>
+__host__ __device__ constexpr bool dkv_split() { return dkv_smem<D, 3>() > SMEM_MAX; }
+static_assert(fwd_smem<256>() <= SMEM_MAX && dq_smem<256>() <= SMEM_MAX &&
+                  dkv_smem<256, 1>() <= SMEM_MAX && dkv_smem<256, 2>() <= SMEM_MAX &&
+                  !dkv_split<128>(),
+              "shared memory of one block");
+
+// acc[i][j] += (row ty + 16 i of a) . (row tx + 16 j of b) over the D columns of two
+// tiles of row stride D + 1.
+template <int D>
+__device__ __forceinline__ void tile_dots(float (&acc)[4][4], const float* a, const float* b,
+                                          int ty, int tx) {
+#pragma unroll 4
+  for (int d = 0; d < D; ++d) {
+    float x[4], y[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      x[i] = a[(ty + 16 * i) * (D + 1) + d];
+      y[i] = b[(tx + 16 * i) * (D + 1) + d];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] += x[i] * y[j];
+  }
 }
 
 // --------------------------------------------------------------------------- //
@@ -178,7 +236,7 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, const int* __restrict__ seg_q,
            const int* __restrict__ seg_k,
            float* __restrict__ o, float* __restrict__ lse,
-           int H, int G, int Sq, int Sk, int causal, int window, float scale) {
+           int H, int G, int Sq, int Sk, int hd, int causal, int window, float scale) {
   constexpr int DS = D + 1;
   constexpr int DPT = D / 16;
   extern __shared__ float smem[];
@@ -197,9 +255,9 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int q0 = iq * BQ;
 
-  const float* kb = k + (size_t)bkv * Sk * D;
-  const float* vb = v + (size_t)bkv * Sk * D;
-  load_tile<D>(sQ, q + (size_t)bh * Sq * D, q0, Sq);
+  const float* kb = k + (size_t)bkv * Sk * hd;
+  const float* vb = v + (size_t)bkv * Sk * hd;
+  load_tile<D>(sQ, q + (size_t)bh * Sq * hd, q0, Sq, hd);
   load_ids(sSq, seg_q + (size_t)b * Sq, q0, Sq);
 
   float m[4], l[4], acc[4][DPT];
@@ -216,8 +274,8 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();                        // previous tile's sK, sV, sP are consumed
-    load_tile<D>(sK, kb, k0, Sk);
-    load_tile<D>(sV, vb, k0, Sk);
+    load_tile<D>(sK, kb, k0, Sk, hd);
+    load_tile<D>(sV, vb, k0, Sk, hd);
     load_ids(sSk, seg_k + (size_t)b * Sk, k0, Sk);
     __syncthreads();
 
@@ -289,9 +347,10 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (qp >= Sq) continue;
     const bool live = l[i] > 0.f;
     const float den = fmaxf(l[i], 1e-30f);
-    float* orow = o + ((size_t)bh * Sq + qp) * D;
+    float* orow = o + ((size_t)bh * Sq + qp) * hd;
 #pragma unroll
-    for (int j = 0; j < DPT; ++j) orow[tx + 16 * j] = live ? acc[i][j] / den : 0.f;
+    for (int j = 0; j < DPT; ++j)
+      if (tx + 16 * j < hd) orow[tx + 16 * j] = live ? acc[i][j] / den : 0.f;
     if (tx == 0) lse[(size_t)bh * Sq + qp] = live ? m[i] + logf(den) : NEG_INF;
   }
 }
@@ -306,14 +365,15 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
               const int* __restrict__ seg_k,
               const float* __restrict__ dout, const float* __restrict__ lse,
               const float* __restrict__ delta, float* __restrict__ dq,
-              int H, int G, int Sq, int Sk, int causal, int window, float scale) {
+              int H, int G, int Sq, int Sk, int hd, int causal, int window, float scale) {
   constexpr int DS = D + 1;
   constexpr int DPT = D / 16;
+  constexpr bool KV_TURNS = dq_tiles<D>() == 3;
   extern __shared__ float smem[];
   float* sQ = smem;
   float* sDO = sQ + BQ * DS;
   float* sK = sDO + BQ * DS;
-  float* sV = sK + BK * DS;
+  float* sV = KV_TURNS ? sK : sK + BK * DS;
   float* sDS = sV + BK * DS;
   float* sLse = sDS + BQ * PS;
   float* sDelta = sLse + BQ;
@@ -328,10 +388,10 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int q0 = iq * BQ;
 
-  const float* kb = k + (size_t)bkv * Sk * D;
-  const float* vb = v + (size_t)bkv * Sk * D;
-  load_tile<D>(sQ, q + (size_t)bh * Sq * D, q0, Sq);
-  load_tile<D>(sDO, dout + (size_t)bh * Sq * D, q0, Sq);
+  const float* kb = k + (size_t)bkv * Sk * hd;
+  const float* vb = v + (size_t)bkv * Sk * hd;
+  load_tile<D>(sQ, q + (size_t)bh * Sq * hd, q0, Sq, hd);
+  load_tile<D>(sDO, dout + (size_t)bh * Sq * hd, q0, Sq, hd);
   load_row_f32(sLse, lse + (size_t)bh * Sq, q0, Sq);
   load_row_f32(sDelta, delta + (size_t)bh * Sq, q0, Sq);
   load_ids(sSq, seg_q + (size_t)b * Sq, q0, Sq);
@@ -346,37 +406,29 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   key_tile_range(q0, Sq, Sk, causal, window, &kt_begin, &kt_end);
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * BK;
-    __syncthreads();
-    load_tile<D>(sK, kb, k0, Sk);
-    load_tile<D>(sV, vb, k0, Sk);
-    load_ids(sSk, seg_k + (size_t)b * Sk, k0, Sk);
-    __syncthreads();
-
     float s[4][4], dp[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qa[4], oa[4], ka[4], va[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qa[i] = sQ[(ty + 16 * i) * DS + d];
-        oa[i] = sDO[(ty + 16 * i) * DS + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        ka[j] = sK[(tx + 16 * j) * DS + d];
-        va[j] = sV[(tx + 16 * j) * DS + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] += qa[i] * ka[j];
-          dp[i][j] += oa[i] * va[j];
-        }
+    __syncthreads();
+    if constexpr (KV_TURNS) {
+      // dP = dO V^T first; then K takes V's buffer for S = Q K^T and dq += dS K
+      load_tile<D>(sV, vb, k0, Sk, hd);
+      load_ids(sSk, seg_k + (size_t)b * Sk, k0, Sk);
+      __syncthreads();
+      tile_dots<D>(dp, sDO, sV, ty, tx);
+      __syncthreads();
+      load_tile<D>(sK, kb, k0, Sk, hd);
+      __syncthreads();
+      tile_dots<D>(s, sQ, sK, ty, tx);
+    } else {
+      load_tile<D>(sK, kb, k0, Sk, hd);
+      load_tile<D>(sV, vb, k0, Sk, hd);
+      load_ids(sSk, seg_k + (size_t)b * Sk, k0, Sk);
+      __syncthreads();
+      tile_dots<D>(s, sQ, sK, ty, tx);
+      tile_dots<D>(dp, sDO, sV, ty, tx);
     }
 
 #pragma unroll
@@ -410,52 +462,54 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int qp = q0 + ty + 16 * i;
     if (qp >= Sq) continue;
-    float* row = dq + ((size_t)bh * Sq + qp) * D;
+    float* row = dq + ((size_t)bh * Sq + qp) * hd;
 #pragma unroll
-    for (int j = 0; j < DPT; ++j) row[tx + 16 * j] = acc[i][j];
+    for (int j = 0; j < DPT; ++j)
+      if (tx + 16 * j < hd) row[tx + 16 * j] = acc[i][j];
   }
 }
 
 // --------------------------------------------------------------------------- //
-// K3 (fp32): dk, dv.  grid (n key tiles, B * KH); loops over the G heads and q tiles.
+// K3 (fp32): dk and / or dv (PART, see dkv_smem) of key tile ik of kv head bkv; loops
+// over the G heads and q tiles.
 // --------------------------------------------------------------------------- //
-template <int D>
-__global__ void __launch_bounds__(NT)
-bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, const int* __restrict__ seg_q,
-               const int* __restrict__ seg_k,
-               const float* __restrict__ dout, const float* __restrict__ lse,
-               const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv,
-               int KH, int G, int Sq, int Sk, int causal, int window, float scale) {
+template <int D, int PART>
+__device__ __forceinline__ void dkv_body(
+    float* smem, const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const int* __restrict__ seg_q, const int* __restrict__ seg_k,
+    const float* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv, int ik,
+    int bkv, int KH, int G, int Sq, int Sk, int hd, int causal, int window, float scale) {
+  constexpr bool DK = PART & 1, DV = PART & 2;
   constexpr int DS = D + 1;
   constexpr int DPT = D / 16;
-  extern __shared__ float smem[];
   float* sK = smem;
-  float* sV = sK + BK * DS;
-  float* sQ = sV + BK * DS;
-  float* sDO = sQ + BQ * DS;
+  float* sV = sK + BK * DS;                 // dP needs V only for dk
+  float* sQ = sV + (DK ? BK * DS : 0);
+  float* sDO = PART == 1 ? sQ : sQ + BQ * DS;   // dk alone: dO, then Q, in one buffer
   float* sPT = sDO + BQ * DS;               // p transposed: [key][query]
-  float* sDST = sPT + BK * PS;              // ds transposed
-  float* sLse = sDST + BK * PS;
+  float* sDST = sPT + (DV ? BK * PS : 0);   // ds transposed
+  float* sLse = sDST + (DK ? BK * PS : 0);
   float* sDelta = sLse + BQ;
   int* sSq = reinterpret_cast<int*>(sDelta + BQ);
   int* sSk = sSq + BQ;
 
-  const int ik = blockIdx.x;
-  const int bkv = blockIdx.y;               // b * KH + kh
   const int b = bkv / KH;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int k0 = ik * BK;
 
-  load_tile<D>(sK, k + (size_t)bkv * Sk * D, k0, Sk);
-  load_tile<D>(sV, v + (size_t)bkv * Sk * D, k0, Sk);
+  load_tile<D>(sK, k + (size_t)bkv * Sk * hd, k0, Sk, hd);
+  if (DK) load_tile<D>(sV, v + (size_t)bkv * Sk * hd, k0, Sk, hd);
   load_ids(sSk, seg_k + (size_t)b * Sk, k0, Sk);
 
-  float gk[4][DPT], gv[4][DPT];
+  float gk[4][DK ? DPT : 1], gv[4][DV ? DPT : 1];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 4; ++i) {
 #pragma unroll
-    for (int j = 0; j < DPT; ++j) gk[i][j] = gv[i][j] = 0.f;
+    for (int j = 0; j < (DK ? DPT : 1); ++j) gk[i][j] = 0.f;
+#pragma unroll
+    for (int j = 0; j < (DV ? DPT : 1); ++j) gv[i][j] = 0.f;
+  }
 
   int qt_begin, qt_end;
   query_tile_range(k0, Sq, Sk, causal, window, &qt_begin, &qt_end);
@@ -463,40 +517,36 @@ bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const size_t bh = (size_t)bkv * G + g;
     for (int qt = qt_begin; qt < qt_end; ++qt) {
       const int q0 = qt * BQ;
-      __syncthreads();
-      load_tile<D>(sQ, q + bh * Sq * D, q0, Sq);
-      load_tile<D>(sDO, dout + bh * Sq * D, q0, Sq);
-      load_row_f32(sLse, lse + bh * Sq, q0, Sq);
-      load_row_f32(sDelta, delta + bh * Sq, q0, Sq);
-      load_ids(sSq, seg_q + (size_t)b * Sq, q0, Sq);
-      __syncthreads();
-
       // s[i][j] = k_c . q_r and dp[i][j] = v_c . do_r with c = ty + 16 i, r = tx + 16 j
       float s[4][4], dp[4][4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-      for (int d = 0; d < D; ++d) {
-        float ka[4], va[4], qa[4], oa[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          ka[i] = sK[(ty + 16 * i) * DS + d];
-          va[i] = sV[(ty + 16 * i) * DS + d];
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          qa[j] = sQ[(tx + 16 * j) * DS + d];
-          oa[j] = sDO[(tx + 16 * j) * DS + d];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            s[i][j] += ka[i] * qa[j];
-            dp[i][j] += va[i] * oa[j];
-          }
+      __syncthreads();
+      load_row_f32(sLse, lse + bh * Sq, q0, Sq);
+      load_row_f32(sDelta, delta + bh * Sq, q0, Sq);
+      load_ids(sSq, seg_q + (size_t)b * Sq, q0, Sq);
+      if constexpr (PART == 1) {
+        // dP^T = V dO^T first; then Q takes dO's buffer for S^T = K Q^T and dk += dS^T Q
+        load_tile<D>(sDO, dout + bh * Sq * hd, q0, Sq, hd);
+        __syncthreads();
+        tile_dots<D>(dp, sV, sDO, ty, tx);
+        __syncthreads();
+        load_tile<D>(sQ, q + bh * Sq * hd, q0, Sq, hd);
+        __syncthreads();
+        tile_dots<D>(s, sK, sQ, ty, tx);
+      } else if constexpr (PART == 2) {
+        load_tile<D>(sQ, q + bh * Sq * hd, q0, Sq, hd);
+        load_tile<D>(sDO, dout + bh * Sq * hd, q0, Sq, hd);
+        __syncthreads();
+        tile_dots<D>(s, sK, sQ, ty, tx);
+      } else {
+        load_tile<D>(sQ, q + bh * Sq * hd, q0, Sq, hd);
+        load_tile<D>(sDO, dout + bh * Sq * hd, q0, Sq, hd);
+        __syncthreads();
+        tile_dots<D>(s, sK, sQ, ty, tx);
+        tile_dots<D>(dp, sV, sDO, ty, tx);
       }
 
 #pragma unroll
@@ -507,8 +557,8 @@ bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
           const int r = tx + 16 * j;
           const bool mk = attend(q0 + r, k0 + c, sSq[r], sSk[c], Sq, Sk, causal, window);
           const float p = mk ? expf(s[i][j] * scale - sLse[r]) : 0.f;
-          sPT[c * PS + r] = p;
-          sDST[c * PS + r] = p * (dp[i][j] - sDelta[r]) * scale;
+          if (DV) sPT[c * PS + r] = p;
+          if (DK) sDST[c * PS + r] = p * (dp[i][j] - sDelta[r]) * scale;
         }
       }
       __syncthreads();
@@ -518,17 +568,20 @@ bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         float pa[4], da[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          pa[i] = sPT[(ty + 16 * i) * PS + r];
-          da[i] = sDST[(ty + 16 * i) * PS + r];
+          if (DV) pa[i] = sPT[(ty + 16 * i) * PS + r];
+          if (DK) da[i] = sDST[(ty + 16 * i) * PS + r];
         }
 #pragma unroll
         for (int j = 0; j < DPT; ++j) {
-          const float oo = sDO[r * DS + tx + 16 * j];
-          const float qq = sQ[r * DS + tx + 16 * j];
+          if constexpr (DV) {
+            const float oo = sDO[r * DS + tx + 16 * j];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            gv[i][j] += pa[i] * oo;
-            gk[i][j] += da[i] * qq;
+            for (int i = 0; i < 4; ++i) gv[i][j] += pa[i] * oo;
+          }
+          if constexpr (DK) {
+            const float qq = sQ[r * DS + tx + 16 * j];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) gk[i][j] += da[i] * qq;
           }
         }
       }
@@ -539,14 +592,38 @@ bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int kp = k0 + ty + 16 * i;
     if (kp >= Sk) continue;
-    float* krow = dk + ((size_t)bkv * Sk + kp) * D;
-    float* vrow = dv + ((size_t)bkv * Sk + kp) * D;
+    float* krow = dk + ((size_t)bkv * Sk + kp) * hd;
+    float* vrow = dv + ((size_t)bkv * Sk + kp) * hd;
 #pragma unroll
     for (int j = 0; j < DPT; ++j) {
-      krow[tx + 16 * j] = gk[i][j];
-      vrow[tx + 16 * j] = gv[i][j];
+      if (tx + 16 * j >= hd) continue;
+      if constexpr (DK) krow[tx + 16 * j] = gk[i][j];
+      if constexpr (DV) vrow[tx + 16 * j] = gv[i][j];
     }
   }
+}
+
+// K3 (fp32): dk, dv.  grid (n key tiles, B * KH, 1), or 2 along z where one block
+// cannot hold both (z = 0: dk, z = 1: dv).
+template <int D>
+__global__ void __launch_bounds__(NT)
+bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const int* __restrict__ seg_q,
+               const int* __restrict__ seg_k,
+               const float* __restrict__ dout, const float* __restrict__ lse,
+               const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv,
+               int KH, int G, int Sq, int Sk, int hd, int causal, int window, float scale) {
+  extern __shared__ float smem[];
+#define DKV_ARGS                                                                          \
+  smem, q, k, v, seg_q, seg_k, dout, lse, delta, dk, dv, blockIdx.x, blockIdx.y, KH, G, Sq, \
+      Sk, hd, causal, window, scale
+  if constexpr (!dkv_split<D>())
+    dkv_body<D, 3>(DKV_ARGS);
+  else if (blockIdx.z == 0)
+    dkv_body<D, 1>(DKV_ARGS);
+  else
+    dkv_body<D, 2>(DKV_ARGS);
+#undef DKV_ARGS
 }
 
 // --------------------------------------------------------------------------- //
@@ -574,19 +651,20 @@ __device__ __forceinline__ uint32_t swz(int r, int c) {
   return (c >> 3) * SW_SUB + r * SW_ROW + (((c & 7) ^ (r & 7)) << 4);
 }
 
-// Rows [row0, row0 + 64) of a row-major (S, D) bf16 matrix into the tile at `dst`, by
+// Rows [row0, row0 + 64) of a row-major (S, hd) bf16 matrix into the tile at `dst`, by
 // 16-byte cp.async copies (8 neighbouring threads read one 128-byte row segment); rows
-// past S are filled with zeros.
+// past S and the chunks of columns past hd are filled with zeros.
 template <int D>
 __device__ __forceinline__ void tile_async(uint32_t dst, const __nv_bfloat16* src, int row0,
-                                           int S) {
+                                           int S, int hd) {
   constexpr int CPR = D / 8;              // 16-byte chunks per row
 #pragma unroll
   for (int it = 0; it < 64 * CPR / WG; ++it) {
     const int i = it * WG + threadIdx.x;
     const int r = i / CPR, c = i % CPR;
-    const bool ok = row0 + r < S;
-    const __nv_bfloat16* g = src + (size_t)(ok ? row0 + r : 0) * D + c * 8;
+    const bool in_row = c * 8 < hd;
+    const bool ok = row0 + r < S && in_row;
+    const __nv_bfloat16* g = src + (size_t)(ok ? row0 + r : 0) * hd + (in_row ? c * 8 : 0);
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                  :: "r"(dst + swz(r, c)), "l"(g), "r"(ok ? 16 : 0) : "memory");
   }
@@ -712,6 +790,53 @@ __device__ __forceinline__ void mma_rs_tb(float (&d)[64], uint32_t a0, uint32_t 
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(scale_d));
 }
 
+// Columns [OFF / 2, OFF / 2 + 128) of D (64 x 256, 128 fp32 a thread) += A B for one
+// k16 slice, as mma_rs_tb: one m64n128k16 on the accumulator elements [OFF, OFF + 64).
+#define ACC8(o)                                                                           \
+  "+f"(d[OFF + o]), "+f"(d[OFF + o + 1]), "+f"(d[OFF + o + 2]), "+f"(d[OFF + o + 3]),     \
+      "+f"(d[OFF + o + 4]), "+f"(d[OFF + o + 5]), "+f"(d[OFF + o + 6]), "+f"(d[OFF + o + 7])
+template <int OFF>
+__device__ __forceinline__ void mma_rs_tb_half(float (&d)[128], uint32_t a0, uint32_t a1,
+                                               uint32_t a2, uint32_t a3, uint64_t db,
+                                               int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48), ACC8(56)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(scale_d));
+}
+#undef ACC8
+
+// D (64 x 256) += A B for one k16 slice as two m64n128k16 products: B's columns
+// [0, 128) by descriptor db0, [128, 256) by db1.  The accumulator layout is the
+// n = 128 one for each half: 8-column block j of the tile at d[4 j .. 4 j + 3].
+__device__ __forceinline__ void mma_rs_tb(float (&d)[128], uint32_t a0, uint32_t a1, uint32_t a2,
+                                          uint32_t a3, uint64_t db0, uint64_t db1, int scale_d) {
+  mma_rs_tb_half<0>(d, a0, a1, a2, a3, db0, scale_d);
+  mma_rs_tb_half<64>(d, a0, a1, a2, a3, db1, scale_d);
+}
+
+// acc (64 x D) += A B for the k16 slice kk: A's fragments a0..a3 in registers, B the
+// MN-major tile at `tile` (64 x D).
+template <int D>
+__device__ __forceinline__ void mma_acc(float (&acc)[D / 2], uint32_t a0, uint32_t a1,
+                                        uint32_t a2, uint32_t a3, uint32_t tile, int kk) {
+  if constexpr (D <= 128)
+    mma_rs_tb(acc, a0, a1, a2, a3, desc_mn(tile, kk), 1);
+  else
+    mma_rs_tb(acc, a0, a1, a2, a3, desc_mn(tile, kk), desc_mn(tile + 2 * SW_SUB, kk), 1);
+}
+
 // Accumulator layout of wgmma m64nNk16 (fp32): thread t = 32 w + l holds, for each
 // 8-column block j, d[4j + h] at row 16 w + l / 4 + 8 (h / 2), column 8 j + 2 (l % 4)
 // + h % 2.  For a 64 x 64 accumulator the 32 elements of the 128 threads partition the
@@ -758,20 +883,21 @@ __device__ __forceinline__ uint32_t tile_mask_bits(int row0, int col0, const int
   return bits;
 }
 
-// Stores a 64 x D fp32 accumulator as bf16 rows [row0, row0 + 64) of `dst` (row-major,
-// rows past S skipped).
+// Stores the columns < hd of a 64 x D fp32 accumulator as bf16 rows [row0, row0 + 64)
+// of `dst` (row-major, row stride hd, rows past S skipped).
 template <int D>
 __device__ __forceinline__ void store_acc(__nv_bfloat16* dst, const float (&acc)[D / 2],
-                                          int row0, int S) {
+                                          int row0, int S, int hd) {
   const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
   const int r = row0 + 16 * w + (l >> 2);
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
+    if (8 * j >= hd) break;                 // hd is a multiple of 8
     const int c = 8 * j + 2 * (l & 3);
     if (r < S)
-      *reinterpret_cast<uint32_t*>(dst + (size_t)r * D + c) = pack_bf16(acc[4 * j], acc[4 * j + 1]);
+      *reinterpret_cast<uint32_t*>(dst + (size_t)r * hd + c) = pack_bf16(acc[4 * j], acc[4 * j + 1]);
     if (r + 8 < S)
-      *reinterpret_cast<uint32_t*>(dst + (size_t)(r + 8) * D + c) =
+      *reinterpret_cast<uint32_t*>(dst + (size_t)(r + 8) * hd + c) =
           pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
   }
 }
@@ -784,7 +910,7 @@ template <int D>
 constexpr size_t dkv_tc_smem() {            // K, V, 2 stages of Q and dO, lse, delta, ids
   return 1024 + 6 * tile_bytes<D>() + sizeof(float) * 4 * BQ + sizeof(int) * (2 * BQ + BK);
 }
-static_assert(dq_tc_smem<128>() <= 232448 && dkv_tc_smem<128>() <= 232448,
+static_assert(dq_tc_smem<256>() <= SMEM_MAX && dkv_tc_smem<256>() <= SMEM_MAX,
               "shared memory of one block");
 
 // The first 1024-byte boundary in dynamic shared memory (the swizzle's period).
@@ -796,14 +922,15 @@ __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
 // K2 (bf16): dq.  grid (n q tiles, B * KH); loops over the G heads of a kv head and,
 // for each, over the key tiles, K and V double-buffered by cp.async.
 // --------------------------------------------------------------------------- //
-template <int D>
+template <int D, bool PAD>
 __global__ void __launch_bounds__(WG)
 bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg_q,
                  const int* __restrict__ seg_k, const __nv_bfloat16* __restrict__ dout,
                  const float* __restrict__ lse, const float* __restrict__ delta,
-                 __nv_bfloat16* __restrict__ dq, int KH, int G, int Sq, int Sk, int causal,
-                 int window, float scale) {
+                 __nv_bfloat16* __restrict__ dq, int KH, int G, int Sq, int Sk, int hd,
+                 int causal, int window, float scale) {
+  if constexpr (!PAD) hd = D;               // see PAD, at the launchers
   constexpr uint32_t TB = tile_bytes<D>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* sm = align1024(smem_raw);
@@ -818,23 +945,23 @@ bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   const int nq = (Sq + BQ - 1) / BQ;
   const int q0 = (nq - 1 - (int)blockIdx.x) * BQ;        // longest causal rows first
   const int bkv = blockIdx.y, b = bkv / KH;
-  const __nv_bfloat16* kb = k + (size_t)bkv * Sk * D;
-  const __nv_bfloat16* vb = v + (size_t)bkv * Sk * D;
+  const __nv_bfloat16* kb = k + (size_t)bkv * Sk * hd;
+  const __nv_bfloat16* vb = v + (size_t)bkv * Sk * hd;
   const float scale_log2 = scale * LOG2E;
   int kt_begin, kt_end;
   key_tile_range(q0, Sq, Sk, causal, window, &kt_begin, &kt_end);
 
   auto issue_kv = [&](int kt, int st) {
-    tile_async<D>(sKV + 2 * st * TB, kb, kt * BK, Sk);
-    tile_async<D>(sKV + (2 * st + 1) * TB, vb, kt * BK, Sk);
+    tile_async<D>(sKV + 2 * st * TB, kb, kt * BK, Sk, hd);
+    tile_async<D>(sKV + (2 * st + 1) * TB, vb, kt * BK, Sk, hd);
     load_ids(sSk + BK * st, seg_k + (size_t)b * Sk, kt * BK, Sk);
   };
 
   for (int g = 0; g < G; ++g) {
     const size_t bh = (size_t)bkv * G + g;
     __syncthreads();                        // the previous head's tiles are consumed
-    tile_async<D>(sQ, q + bh * Sq * D, q0, Sq);
-    tile_async<D>(sDO, dout + bh * Sq * D, q0, Sq);
+    tile_async<D>(sQ, q + bh * Sq * hd, q0, Sq, hd);
+    tile_async<D>(sDO, dout + bh * Sq * hd, q0, Sq, hd);
     if (tid < BQ) {
       const int i = q0 + tid;
       sLse[tid] = i < Sq ? lse[bh * Sq + i] * LOG2E : 0.f;
@@ -896,8 +1023,7 @@ bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
         wg_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          mma_rs_tb(acc, a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3],
-                    desc_mn(sK, kk), 1);
+          mma_acc<D>(acc, a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3], sK, kk);
         wg_commit();
         wg_wait0();
         pin(acc);
@@ -905,26 +1031,30 @@ bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
       }
     }
     cp_wait<0>();                           // no copy outlives its head (empty key range)
-    store_acc<D>(dq + bh * Sq * D, acc, q0, Sq);
+    store_acc<D>(dq + bh * Sq * hd, acc, q0, Sq, hd);
   }
 }
 
 // --------------------------------------------------------------------------- //
-// K3 (bf16): dk, dv.  grid (n key tiles, B * KH); loops over the G heads and the q
+// K3 (bf16): dk, dv.  grid (n key tiles, B * KH, 1); loops over the G heads and the q
 // tiles, Q and dO double-buffered by cp.async, in the transposed form
 // S^T = K Q^T, dP^T = V dO^T, so that P^T and dS^T are register A operands of
-// dv += P^T dO and dk += dS^T Q.
+// dv += P^T dO and dk += dS^T Q.  At D 256 the two 64 x 256 fp32 accumulators would
+// take 256 registers a thread, so the grid is 2 along z: the block with z = 0 computes
+// dk alone (PART 1), z = 1 dv alone (PART 2: neither V nor dP^T), each recomputing S^T;
+// PART 3 computes both.
 // --------------------------------------------------------------------------- //
-template <int D>
-__global__ void __launch_bounds__(WG)
-bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg_q,
-                  const int* __restrict__ seg_k, const __nv_bfloat16* __restrict__ dout,
-                  const float* __restrict__ lse, const float* __restrict__ delta,
-                  __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int KH, int G,
-                  int Sq, int Sk, int causal, int window, float scale) {
+template <int D, int PART>
+__device__ __forceinline__ void dkv_tc_body(
+    unsigned char* smem_raw, const __nv_bfloat16* __restrict__ q,
+    const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
+    const int* __restrict__ seg_q, const int* __restrict__ seg_k,
+    const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
+    __nv_bfloat16* __restrict__ dv, int KH, int G, int Sq, int Sk, int hd, int causal,
+    int window, float scale) {
+  constexpr bool DK = PART & 1, DV = PART & 2;
   constexpr uint32_t TB = tile_bytes<D>();
-  extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* sm = align1024(smem_raw);
   const uint32_t sK = smem_u32(sm), sV = sK + TB;
   const uint32_t sQO = sK + 2 * TB;         // stage s: Q at sQO + 2 s TB, dO at sQO + (2 s + 1) TB
@@ -945,8 +1075,8 @@ bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
   auto issue_q = [&](int t, int st) {
     const int q0 = (qt_begin + t % nqt) * BQ;
     const size_t bh = (size_t)bkv * G + t / nqt;
-    tile_async<D>(sQO + 2 * st * TB, q + bh * Sq * D, q0, Sq);
-    tile_async<D>(sQO + (2 * st + 1) * TB, dout + bh * Sq * D, q0, Sq);
+    tile_async<D>(sQO + 2 * st * TB, q + bh * Sq * hd, q0, Sq, hd);
+    tile_async<D>(sQO + (2 * st + 1) * TB, dout + bh * Sq * hd, q0, Sq, hd);
     if (tid < BQ) {
       const int i = q0 + tid;
       sLse[BQ * st + tid] = i < Sq ? lse[bh * Sq + i] * LOG2E : 0.f;
@@ -955,15 +1085,17 @@ bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
     }
   };
 
-  tile_async<D>(sK, k + (size_t)bkv * Sk * D, k0, Sk);
-  tile_async<D>(sV, v + (size_t)bkv * Sk * D, k0, Sk);
+  tile_async<D>(sK, k + (size_t)bkv * Sk * hd, k0, Sk, hd);
+  if (DK) tile_async<D>(sV, v + (size_t)bkv * Sk * hd, k0, Sk, hd);
   load_ids(sSk, seg_k + (size_t)b * Sk, k0, Sk);
   if (n_tiles > 0) issue_q(0, 0);
   cp_commit();
 
-  float gk[D / 2], gv[D / 2];
+  float gk[DK ? D / 2 : 1], gv[DV ? D / 2 : 1];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) gk[i] = gv[i] = 0.f;
+  for (int i = 0; i < (DK ? D / 2 : 1); ++i) gk[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < (DV ? D / 2 : 1); ++i) gv[i] = 0.f;
 
   for (int t = 0; t < n_tiles; ++t) {
     const int st = t & 1;
@@ -985,12 +1117,14 @@ bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) mma_ss(s, desc_k(sK, kk), desc_k(sQ, kk), kk);
+      if constexpr (DK) {
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) mma_ss(dp, desc_k(sV, kk), desc_k(sDO, kk), kk);
+        for (int kk = 0; kk < D / 16; ++kk) mma_ss(dp, desc_k(sV, kk), desc_k(sDO, kk), kk);
+      }
       wg_commit();
       wg_wait0();
       pin(s);
-      pin(dp);
+      if constexpr (DK) pin(dp);
       // rows are keys, columns queries: lse and delta vary along the columns
       uint32_t pa[16], da[16];
 #pragma unroll
@@ -1002,33 +1136,65 @@ bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
         for (int h = 0; h < 4; ++h) {
           const int e = 4 * j + h;
           p[h] = (live >> e) & 1u ? exp2f(s[e] * scale_log2 - lse_c[h & 1]) : 0.f;
-          ds[h] = p[h] * (dp[e] - del_c[h & 1]) * scale;
+          if (DK) ds[h] = p[h] * (dp[e] - del_c[h & 1]) * scale;
         }
-        pa[2 * j] = pack_bf16(p[0], p[1]);
-        pa[2 * j + 1] = pack_bf16(p[2], p[3]);
-        da[2 * j] = pack_bf16(ds[0], ds[1]);
-        da[2 * j + 1] = pack_bf16(ds[2], ds[3]);
+        if (DV) {
+          pa[2 * j] = pack_bf16(p[0], p[1]);
+          pa[2 * j + 1] = pack_bf16(p[2], p[3]);
+        }
+        if (DK) {
+          da[2 * j] = pack_bf16(ds[0], ds[1]);
+          da[2 * j + 1] = pack_bf16(ds[2], ds[3]);
+        }
       }
       wg_fence();
+      if constexpr (DV) {
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        mma_rs_tb(gv, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
-                  desc_mn(sDO, kk), 1);
+        for (int kk = 0; kk < 4; ++kk)
+          mma_acc<D>(gv, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3], sDO, kk);
+      }
+      if constexpr (DK) {
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        mma_rs_tb(gk, da[4 * kk], da[4 * kk + 1], da[4 * kk + 2], da[4 * kk + 3],
-                  desc_mn(sQ, kk), 1);
+        for (int kk = 0; kk < 4; ++kk)
+          mma_acc<D>(gk, da[4 * kk], da[4 * kk + 1], da[4 * kk + 2], da[4 * kk + 3], sQ, kk);
+      }
       wg_commit();
       wg_wait0();
-      pin(gv);
-      pin(gk);
-      pin(pa);
-      pin(da);
+      if constexpr (DV) {
+        pin(gv);
+        pin(pa);
+      }
+      if constexpr (DK) {
+        pin(gk);
+        pin(da);
+      }
     }
   }
   cp_wait<0>();                             // no copy outlives the block (empty q range)
-  store_acc<D>(dk + (size_t)bkv * Sk * D, gk, k0, Sk);
-  store_acc<D>(dv + (size_t)bkv * Sk * D, gv, k0, Sk);
+  if constexpr (DK) store_acc<D>(dk + (size_t)bkv * Sk * hd, gk, k0, Sk, hd);
+  if constexpr (DV) store_acc<D>(dv + (size_t)bkv * Sk * hd, gv, k0, Sk, hd);
+}
+
+template <int D, bool PAD>
+__global__ void __launch_bounds__(WG)
+bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg_q,
+                  const int* __restrict__ seg_k, const __nv_bfloat16* __restrict__ dout,
+                  const float* __restrict__ lse, const float* __restrict__ delta,
+                  __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int KH, int G,
+                  int Sq, int Sk, int hd, int causal, int window, float scale) {
+  if constexpr (!PAD) hd = D;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+#define DKV_TC_ARGS                                                                         \
+  smem_raw, q, k, v, seg_q, seg_k, dout, lse, delta, dk, dv, KH, G, Sq, Sk, hd, causal, window, \
+      scale
+  if constexpr (D <= 128)
+    dkv_tc_body<D, 3>(DKV_TC_ARGS);
+  else if (blockIdx.z == 0)
+    dkv_tc_body<D, 1>(DKV_TC_ARGS);
+  else
+    dkv_tc_body<D, 2>(DKV_TC_ARGS);
+#undef DKV_TC_ARGS
 }
 
 // --------------------------------------------------------------------------- //
@@ -1040,7 +1206,7 @@ template <int D>
 constexpr size_t fwd_tc_smem() {            // Q, 2 stages of K and V; ids and their ranges
   return 1024 + 5 * tile_bytes<D>() + sizeof(int) * (BQ + 2 * BK + 3 * 4);
 }
-static_assert(fwd_tc_smem<128>() <= 232448, "shared memory of one block");
+static_assert(fwd_tc_smem<256>() <= SMEM_MAX, "shared memory of one block");
 
 // 64 int32 ids starting at i0 (-1 past n) into dst, and into rng the min and max of
 // each half (4 ints): a tile whose ids are all one segment is known by 4 loads.
@@ -1113,13 +1279,14 @@ __device__ __forceinline__ void softmax_tile(float (&s)[32], uint32_t live, floa
   l1 = l1 * corr1 + ps1;
 }
 
-template <int D>
+template <int D, bool PAD>
 __global__ void __launch_bounds__(WG)
 fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
               const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg_q,
               const int* __restrict__ seg_k, __nv_bfloat16* __restrict__ o,
-              float* __restrict__ lse, int H, int G, int Sq, int Sk, int causal, int window,
-              float scale) {
+              float* __restrict__ lse, int H, int G, int Sq, int Sk, int hd, int causal,
+              int window, float scale) {
+  if constexpr (!PAD) hd = D;
   constexpr uint32_t TB = tile_bytes<D>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* sm = align1024(smem_raw);
@@ -1133,20 +1300,20 @@ fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
   const int nq = (Sq + BQ - 1) / BQ;
   const int q0 = (nq - 1 - (int)blockIdx.x) * BQ;        // longest causal rows first
   const int bh = blockIdx.y, b = bh / H, bkv = bh / G;
-  const __nv_bfloat16* kb = k + (size_t)bkv * Sk * D;
-  const __nv_bfloat16* vb = v + (size_t)bkv * Sk * D;
+  const __nv_bfloat16* kb = k + (size_t)bkv * Sk * hd;
+  const __nv_bfloat16* vb = v + (size_t)bkv * Sk * hd;
   // p = 2^(s c - m c): the softmax scale and log2(e) in one factor
   const float c = scale * LOG2E;
   int kt_begin, kt_end;
   key_tile_range(q0, Sq, Sk, causal, window, &kt_begin, &kt_end);
 
   auto issue_kv = [&](int kt, int st) {
-    tile_async<D>(sKV + 2 * st * TB, kb, kt * BK, Sk);
-    tile_async<D>(sKV + (2 * st + 1) * TB, vb, kt * BK, Sk);
+    tile_async<D>(sKV + 2 * st * TB, kb, kt * BK, Sk, hd);
+    tile_async<D>(sKV + (2 * st + 1) * TB, vb, kt * BK, Sk, hd);
     load_ids_range(sSk + BK * st, sRng + 4 + 4 * st, seg_k + (size_t)b * Sk, kt * BK, Sk);
   };
 
-  tile_async<D>(sQ, q + (size_t)bh * Sq * D, q0, Sq);
+  tile_async<D>(sQ, q + (size_t)bh * Sq * hd, q0, Sq, hd);
   load_ids_range(sSq, sRng, seg_q + (size_t)b * Sq, q0, Sq);
   if (kt_begin < kt_end) issue_kv(kt_begin, 0);
   cp_commit();
@@ -1213,8 +1380,7 @@ fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        mma_rs_tb(acc, a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3],
-                  desc_mn(sV, kk), 1);
+        mma_acc<D>(acc, a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3], sV, kk);
       wg_commit();
       wg_wait0();
       pin(acc);
@@ -1239,7 +1405,7 @@ fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
     acc[4 * j + 2] = live1 ? acc[4 * j + 2] / den1 : 0.f;
     acc[4 * j + 3] = live1 ? acc[4 * j + 3] / den1 : 0.f;
   }
-  store_acc<D>(o + (size_t)bh * Sq * D, acc, q0, Sq);
+  store_acc<D>(o + (size_t)bh * Sq * hd, acc, q0, Sq, hd);
   if ((l & 3) == 0) {
     const int r = q0 + 16 * w + (l >> 2);
     if (r < Sq) lse[(size_t)bh * Sq + r] = live0 ? m0 * scale + logf(den0) : NEG_INF;
@@ -1247,8 +1413,9 @@ fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
   }
 }
 
-// D^-0.5 rounded to fp32, as the TPU wrapper's `D ** -0.5` is.
-float softmax_scale(int D) { return (float)(1.0 / sqrt((double)D)); }
+// hd^-0.5 rounded to fp32, as the TPU wrapper's `D ** -0.5` is: the real head dim, not
+// the tile width it is instantiated at.
+float softmax_scale(int hd) { return (float)(1.0 / sqrt((double)hd)); }
 
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
@@ -1258,7 +1425,7 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 template <int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, const int* seg_q,
                        const int* seg_k, void* o, float* lse, int B, int KH, int G, int Sq,
-                       int Sk, int causal, int window, cudaStream_t stream) {
+                       int Sk, int hd, int causal, int window, cudaStream_t stream) {
   const size_t smem = fwd_smem<D>();
   cudaError_t e = allow_smem(fwd_kernel<D>, smem);
   if (e != cudaSuccess) return e;
@@ -1266,31 +1433,43 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, const int* s
   fwd_kernel<D><<<grid, NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), seg_q, seg_k, static_cast<float*>(o), lse, KH * G, G, Sq,
-      Sk, causal, window, softmax_scale(D));
+      Sk, hd, causal, window, softmax_scale(hd));
   return cudaGetLastError();
 }
 
+// The tensor-core kernels' PAD: false where the head dim fills the tile (hd == D), and
+// the kernel then takes D as a constant row stride and loads no zero chunks, the
+// code of a kernel written for that one width; true where it does not.  Measured on
+// an H100, the runtime stride alone cost the full-width kernels registers (K3 at D 128
+// spilled) and 3-31 % of their time.  Built with -DPFA_PAD_ALWAYS=1, every launch takes
+// the PAD true kernel, for measuring what PAD costs at a full-width head dim
+// (tools/pfa_ab.py --baseline-flags).
+#ifndef PFA_PAD_ALWAYS
+#define PFA_PAD_ALWAYS 0
+#endif
 template <int D>
 cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v, const int* seg_q,
                           const int* seg_k, void* o, float* lse, int B, int KH, int G, int Sq,
-                          int Sk, int causal, int window, cudaStream_t stream) {
+                          int Sk, int hd, int causal, int window, cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
   const size_t smem = fwd_tc_smem<D>();
-  cudaError_t e = allow_smem(fwd_tc_kernel<D>, smem);
+  const auto kernel = hd == D && !PFA_PAD_ALWAYS ? fwd_tc_kernel<D, false>
+                                               : fwd_tc_kernel<D, true>;
+  cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((Sq + BQ - 1) / BQ, B * KH * G);
-  fwd_tc_kernel<D><<<grid, WG, smem, stream>>>(
+  kernel<<<grid, WG, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      seg_q, seg_k, static_cast<bf16*>(o), lse, KH * G, G, Sq, Sk, causal, window,
-      softmax_scale(D));
+      seg_q, seg_k, static_cast<bf16*>(o), lse, KH * G, G, Sq, Sk, hd, causal, window,
+      softmax_scale(hd));
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const int* seg_q,
                       const int* seg_k, const void* dout, const float* lse, const float* delta,
-                      void* dq, int B, int KH, int G, int Sq, int Sk, int causal, int window,
-                      cudaStream_t stream) {
+                      void* dq, int B, int KH, int G, int Sq, int Sk, int hd, int causal,
+                      int window, cudaStream_t stream) {
   const size_t smem = dq_smem<D>();
   cudaError_t e = allow_smem(bwd_dq_kernel<D>, smem);
   if (e != cudaSuccess) return e;
@@ -1298,24 +1477,25 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const int* se
   bwd_dq_kernel<D><<<grid, NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), seg_q, seg_k, static_cast<const float*>(dout), lse, delta,
-      static_cast<float*>(dq), KH * G, G, Sq, Sk, causal, window, softmax_scale(D));
+      static_cast<float*>(dq), KH * G, G, Sq, Sk, hd, causal, window, softmax_scale(hd));
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const int* seg_q,
                        const int* seg_k, const void* dout, const float* lse, const float* delta,
-                       void* dk, void* dv, int B, int KH, int G, int Sq, int Sk, int causal,
-                       int window, cudaStream_t stream) {
-  const size_t smem = dkv_smem<D>();
+                       void* dk, void* dv, int B, int KH, int G, int Sq, int Sk, int hd,
+                       int causal, int window, cudaStream_t stream) {
+  constexpr bool split = dkv_split<D>();
+  const size_t smem = split ? dkv_smem<D, 1>() : dkv_smem<D, 3>();
   cudaError_t e = allow_smem(bwd_dkv_kernel<D>, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((Sk + BK - 1) / BK, B * KH);
+  const dim3 grid((Sk + BK - 1) / BK, B * KH, split ? 2 : 1);
   bwd_dkv_kernel<D><<<grid, NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), seg_q, seg_k, static_cast<const float*>(dout), lse, delta,
-      static_cast<float*>(dk), static_cast<float*>(dv), KH, G, Sq, Sk, causal, window,
-      softmax_scale(D));
+      static_cast<float*>(dk), static_cast<float*>(dv), KH, G, Sq, Sk, hd, causal, window,
+      softmax_scale(hd));
   return cudaGetLastError();
 }
 
@@ -1323,16 +1503,18 @@ template <int D>
 cudaError_t launch_dq_tc(const void* q, const void* k, const void* v, const int* seg_q,
                          const int* seg_k, const void* dout, const float* lse,
                          const float* delta, void* dq, int B, int KH, int G, int Sq, int Sk,
-                         int causal, int window, cudaStream_t stream) {
+                         int hd, int causal, int window, cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
   const size_t smem = dq_tc_smem<D>();
-  cudaError_t e = allow_smem(bwd_dq_tc_kernel<D>, smem);
+  const auto kernel = hd == D && !PFA_PAD_ALWAYS ? bwd_dq_tc_kernel<D, false>
+                                               : bwd_dq_tc_kernel<D, true>;
+  cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((Sq + BQ - 1) / BQ, B * KH);
-  bwd_dq_tc_kernel<D><<<grid, WG, smem, stream>>>(
+  kernel<<<grid, WG, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       seg_q, seg_k, static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq), KH, G,
-      Sq, Sk, causal, window, softmax_scale(D));
+      Sq, Sk, hd, causal, window, softmax_scale(hd));
   return cudaGetLastError();
 }
 
@@ -1340,31 +1522,37 @@ template <int D>
 cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v, const int* seg_q,
                           const int* seg_k, const void* dout, const float* lse,
                           const float* delta, void* dk, void* dv, int B, int KH, int G, int Sq,
-                          int Sk, int causal, int window, cudaStream_t stream) {
+                          int Sk, int hd, int causal, int window, cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
   const size_t smem = dkv_tc_smem<D>();
-  cudaError_t e = allow_smem(bwd_dkv_tc_kernel<D>, smem);
+  const auto kernel = hd == D && !PFA_PAD_ALWAYS ? bwd_dkv_tc_kernel<D, false>
+                                               : bwd_dkv_tc_kernel<D, true>;
+  cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((Sk + BK - 1) / BK, B * KH);
-  bwd_dkv_tc_kernel<D><<<grid, WG, smem, stream>>>(
+  const dim3 grid((Sk + BK - 1) / BK, B * KH, D <= 128 ? 1 : 2);   // z: dk, dv at D 256
+  kernel<<<grid, WG, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       seg_q, seg_k, static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), KH, G, Sq, Sk, causal, window, softmax_scale(D));
+      static_cast<bf16*>(dv), KH, G, Sq, Sk, hd, causal, window, softmax_scale(hd));
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C interface (loaded with ctypes).  Pointers are device pointers, `stream` is
-// a cudaStream_t; `bf16` selects bf16 (1) or fp32 (0) q/k/v/o; D must be 64 or 128.
-// Every kernel runs on the tensor cores in bf16 and on the CUDA cores in fp32.
-// Each function returns the cudaError_t of its launch (0 on success).
+// a cudaStream_t; `bf16` selects bf16 (1) or fp32 (0) q/k/v/o; D is the head dim, a
+// multiple of 8 from 8 to 256, run at the narrowest tile width of 64, 128 or 256 that
+// holds it.  Every kernel runs on the tensor cores in bf16 and on the CUDA cores in
+// fp32.  Each function returns the cudaError_t of its launch (0 on success), and
+// cudaErrorInvalidValue for a head dim it does not take.
 #define PFA_DISPATCH(TC, FP32)                                              \
-  if (bf16 && D == 64) return (int)TC(64);                                  \
-  if (bf16 && D == 128) return (int)TC(128);                                \
-  if (!bf16 && D == 64) return (int)FP32(64);                               \
-  if (!bf16 && D == 128) return (int)FP32(128);                             \
-  return (int)cudaErrorInvalidValue;
+  if (D < 8 || D > 256 || D % 8 != 0) return (int)cudaErrorInvalidValue;    \
+  if (bf16 && D <= 64) return (int)TC(64);                                  \
+  if (bf16 && D <= 128) return (int)TC(128);                                \
+  if (bf16) return (int)TC(256);                                            \
+  if (D <= 64) return (int)FP32(64);                                        \
+  if (D <= 128) return (int)FP32(128);                                      \
+  return (int)FP32(256);
 
 extern "C" {
 
@@ -1373,7 +1561,7 @@ int pfa_fwd(const void* q, const void* k, const void* v, const void* seg_q, cons
             int window, int bf16, void* stream) {
 #define ARGS                                                                             \
   q, k, v, static_cast<const int*>(seg_q), static_cast<const int*>(seg_k), o,             \
-      static_cast<float*>(lse), B, KH, G, Sq, Sk, causal, window,                         \
+      static_cast<float*>(lse), B, KH, G, Sq, Sk, D, causal, window,                      \
       static_cast<cudaStream_t>(stream)
 #define TC(DD) launch_fwd_tc<DD>(ARGS)
 #define FP32(DD) launch_fwd<DD>(ARGS)
@@ -1390,7 +1578,7 @@ int pfa_bwd_dq(const void* q, const void* k, const void* v, const void* seg_q,
 #define ARGS                                                                             \
   q, k, v, static_cast<const int*>(seg_q), static_cast<const int*>(seg_k), dout,          \
       static_cast<const float*>(lse), static_cast<const float*>(delta), dq, B, KH, G, Sq, \
-      Sk, causal, window, static_cast<cudaStream_t>(stream)
+      Sk, D, causal, window, static_cast<cudaStream_t>(stream)
 #define TC(DD) launch_dq_tc<DD>(ARGS)
 #define FP32(DD) launch_dq<DD>(ARGS)
   PFA_DISPATCH(TC, FP32)
@@ -1406,7 +1594,7 @@ int pfa_bwd_dkv(const void* q, const void* k, const void* v, const void* seg_q,
 #define ARGS                                                                             \
   q, k, v, static_cast<const int*>(seg_q), static_cast<const int*>(seg_k), dout,          \
       static_cast<const float*>(lse), static_cast<const float*>(delta), dk, dv, B, KH, G, \
-      Sq, Sk, causal, window, static_cast<cudaStream_t>(stream)
+      Sq, Sk, D, causal, window, static_cast<cudaStream_t>(stream)
 #define TC(DD) launch_dkv_tc<DD>(ARGS)
 #define FP32(DD) launch_dkv<DD>(ARGS)
   PFA_DISPATCH(TC, FP32)

@@ -14,7 +14,8 @@ Three wrappers, one per kernel: ``flash_fwd`` (K1), ``flash_bwd_dq`` (K2),
 and counts the launch in ``LAUNCHES``, keyed by kernel, route, head_dim and
 causality.  The route follows the dtype, explicitly: K1, K2 and K3 in bf16
 run on the tensor cores (``"tensor_core"``, wgmma), in fp32 on the CUDA cores
-(``"cuda_core"``: TF32 would break the fp32 tolerance).  There is no fallback:
+(``"cuda_core"``: TF32 would break the fp32 tolerance), at any head_dim that is
+a multiple of 8 up to ``MAX_HEAD_DIM``.  There is no fallback:
 a CUDA tensor launches its route's kernel or raises.  On a CPU tensor each
 wrapper runs its plain version (``fwd_plain``, ``bwd_dq_plain``,
 ``bwd_dkv_plain``), a blocked online softmax in torch with the same mask
@@ -39,6 +40,10 @@ NEG_INF = -1e30
 # TENSOR_CORE, CUDA_CORE (see ``route_of``).
 LAUNCHES: Counter = Counter()
 TENSOR_CORE, CUDA_CORE = "tensor_core", "cuda_core"
+# The CUDA kernels take any head_dim that is a multiple of 8 up to this; each
+# runs at the narrowest tile width of 64, 128 or 256 that holds it (zero
+# columns past head_dim, never stored), so D 72 costs what D 128 does.
+MAX_HEAD_DIM = 256
 
 
 def reset_launches() -> None:
@@ -168,8 +173,9 @@ def _check(kernel, q, k, v, seg_q, seg_k, dout=None, lse=None, delta=None):
     """Raise on what the CUDA kernel of ``kernel`` does not take."""
     B, KH, G, Sq, D = q.shape
     Sk = k.shape[2]
-    if D not in (64, 128):
-        raise ValueError(f"CUDA packed flash attention takes head_dim 64 or 128, got {D}")
+    if D % 8 or not 8 <= D <= MAX_HEAD_DIM:
+        raise ValueError("CUDA packed flash attention takes a head_dim that is a multiple "
+                         f"of 8 from 8 to {MAX_HEAD_DIM} (16-byte row chunks), got {D}")
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"CUDA packed flash attention takes bf16 or fp32, got {q.dtype}")
     if k.shape != (B, KH, Sk, D) or v.shape != k.shape:

@@ -2,7 +2,12 @@
 
 ``adamw_update`` updates the parameters and moments in place (under
 ``no_grad``) and returns them: the reference returns new trees, but at full
-size a second copy of params, m and v would not fit beside the first."""
+size a second copy of params, m and v would not fit beside the first.
+
+Weight decay takes the leaves the reference decays, those of two or more
+dims in its layout.  The reference stacks each layer's leaves along a
+leading axis, so a layer's one-dim leaves (norm scales) decay too; the
+port keeps one dict per layer (``layers/{i}/...``) and counts that axis."""
 from __future__ import annotations
 
 import math
@@ -10,7 +15,7 @@ from dataclasses import dataclass
 
 import torch
 
-from repro_torch.common.pytree import global_norm, tree_leaves, tree_zeros_like
+from repro_torch.common.pytree import global_norm, tree_leaves, tree_paths, tree_zeros_like
 
 
 @dataclass(frozen=True)
@@ -42,13 +47,13 @@ def adamw_update(cfg: AdamWConfig, params, grads, state, lr=None):
     # bias corrections in fp32, as the reference computes b ** step
     bc1 = 1 - torch.tensor(cfg.b1, dtype=torch.float32) ** step
     bc2 = 1 - torch.tensor(cfg.b2, dtype=torch.float32) ** step
-    for p, g, m, v in zip(tree_leaves(params), flat_g, tree_leaves(state["m"]),
-                          tree_leaves(state["v"])):
+    for (path, p), g, m, v in zip(tree_paths(params), flat_g, tree_leaves(state["m"]),
+                                  tree_leaves(state["v"])):
         g32 = g.float()
         m.mul_(cfg.b1).add_(g32, alpha=1 - cfg.b1)
         v.mul_(cfg.b2).addcmul_(g32, g32, value=1 - cfg.b2)
         delta = (m / bc1.item()) / (torch.sqrt(v / bc2.item()) + cfg.eps)
-        if p.ndim >= 2 and cfg.weight_decay:
+        if p.ndim + ("layers" in path.split("/")) >= 2 and cfg.weight_decay:
             delta.add_(p.float(), alpha=cfg.weight_decay)
         p.copy_((p.float() - lr * delta).to(p.dtype))
     return params, {"m": state["m"], "v": state["v"], "step": step}

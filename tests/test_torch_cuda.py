@@ -47,8 +47,11 @@ def _segments(kind, B, S):
 
 
 # (B, KH, G, S, D, causal, window, segments): bf16 K1-K3 run on the tensor
-# cores, fp32 on the CUDA cores; both head dims, a prime length, a window
-# spanning tiles, G = 4 bidirectional, rows masked everywhere, packed rows
+# cores, fp32 on the CUDA cores; head dims 64 and 128 (their own tile
+# widths) and 24, 32, 72, 80, 256 (the other head dims of the reference's
+# configs: zero columns past D in a 64-, 128- or 256-wide tile), a prime
+# length, a window spanning tiles, G = 4 and G = 7 (Qwen2.5-7B's), rows
+# masked everywhere, packed rows
 CASES = [(1, 2, 2, 131, 64, True, 0, "two"),
          (2, 2, 1, 96, 128, False, 0, "two"),
          (1, 1, 4, 200, 64, True, 37, "two"),
@@ -57,7 +60,16 @@ CASES = [(1, 2, 2, 131, 64, True, 0, "two"),
          (2, 1, 4, 200, 64, False, 0, "two"),
          (1, 2, 2, 200, 128, True, 0, "masked"),
          (2, 2, 2, 300, 128, True, 0, "packed"),
-         (2, 1, 2, 300, 64, False, 0, "packed")]
+         (2, 1, 2, 300, 64, False, 0, "packed"),
+         (1, 2, 2, 131, 24, False, 0, "two"),
+         (1, 1, 2, 257, 32, True, 0, "two"),
+         (1, 1, 7, 257, 72, False, 0, "two"),
+         (1, 2, 2, 200, 72, True, 0, "masked"),
+         (2, 2, 1, 300, 80, True, 0, "packed"),
+         (1, 1, 7, 131, 128, True, 0, "two"),
+         (1, 1, 8, 200, 256, True, 0, "two"),
+         (1, 2, 2, 200, 256, True, 0, "masked"),
+         (2, 1, 2, 300, 256, False, 0, "packed")]
 
 
 def _case(gen, dt, B, KH, G, S, D):

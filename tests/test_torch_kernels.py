@@ -70,6 +70,14 @@ CASES = [
     (2, 64, 2, 2, 32, False, 0, 2),      # bidirectional (encoder)
     (1, 96, 2, 1, 32, True, 48, 2),      # window spans 32-blocks
     (1, 127, 2, 2, 32, True, 0, 2),      # prime length (pad path)
+    # the other head dims of the reference's configs: the tiny encoder of
+    # examples/train_mllm.py (24), SigLIP (72, here with Qwen2.5's G = 7),
+    # HuBERT-xlarge (80), gemma-2b (256, MQA)
+    (1, 64, 4, 2, 24, False, 0, 2),
+    (1, 64, 7, 1, 72, True, 0, 2),
+    (2, 64, 2, 2, 72, False, 0, 3),
+    (1, 96, 2, 1, 80, True, 48, 2),
+    (1, 64, 2, 1, 256, True, 0, 2),
 ]
 
 
@@ -210,7 +218,7 @@ def _within_bf16_tol(got, ref, what):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 72, 128])
 def test_bf16_rounding_of_p_and_ds_stays_within_tolerance(D, causal):
     """Rounding p and ds to bf16 before the second products (what the
     tensor-core K2/K3 do) stays within the smoke's bf16 tolerances of the
@@ -279,7 +287,7 @@ def _rounded_forward(q, k, v, seg_q, seg_k, causal, bk=64):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 72, 128])
 def test_bf16_rounding_of_p_in_the_forward_stays_within_tolerance(D, causal):
     """Rounding p to bf16 before P V (what the tensor-core K1 does, l kept
     from the fp32 p) stays within the smoke's bf16 tolerances of the plain
@@ -324,22 +332,27 @@ def test_bf16_rounding_of_p_in_the_forward_stays_within_tolerance(D, causal):
 
 def test_route_follows_dtype_and_checks_follow_route():
     """bf16 K1, K2 and K3 take the tensor cores, fp32 the CUDA cores; the
-    argument checks hold each route to its own grid and alignment."""
+    argument checks hold each route to its own grid and alignment, and both
+    to head dims that are multiples of 8 from 8 to 256."""
     assert pfa.route_of(torch.bfloat16) == pfa.TENSOR_CORE
     assert pfa.route_of(torch.float32) == pfa.CUDA_CORE
     B, KH, G, S, D = 1, 2, 2, 16, 64
     seg = torch.ones(B, S, dtype=torch.int32)
     row = torch.zeros(B, KH, G, S)
 
-    def args(dt, q=None):
+    def args(dt, q=None, D=D):
         q = torch.zeros(B, KH, G, S, D, dtype=dt) if q is None else q
         k = torch.zeros(B, KH, S, D, dtype=dt)
         return (q, k, k, seg, seg, torch.zeros_like(q), row, row)
 
     for kernel in ("fwd", "bwd_dq", "bwd_dkv"):
         n = 5 if kernel == "fwd" else 8          # K1 takes no dout, lse, delta
-        pfa._check(kernel, *args(torch.bfloat16)[:n])             # accepted
-        pfa._check(kernel, *args(torch.float32)[:n])
+        for dt in (torch.bfloat16, torch.float32):
+            for d in (24, 32, 64, 72, 80, 128, 256):         # accepted
+                pfa._check(kernel, *args(dt, D=d)[:n])
+            for d in (20, 264):
+                with pytest.raises(ValueError, match="multiple of 8 from 8 to 256"):
+                    pfa._check(kernel, *args(dt, D=d)[:n])
         # a view that starts 2 bytes into its storage: no 16-byte cp.async
         buf = torch.zeros(B * KH * G * S * D + 1, dtype=torch.bfloat16)
         q_off = buf[1:].view(B, KH, G, S, D)

@@ -147,6 +147,38 @@ def test_adamw_update_matches_reference():
                                    rtol=1e-6, atol=1e-6)
 
 
+
+def test_adamw_decays_what_the_reference_decays():
+    """The reference stacks each layer's leaves along a leading axis, so a
+    layer's norm scale is 2-D there and decays; a 1-D leaf outside the
+    layers (a final norm's scale) does not.  The port keeps one dict per
+    layer and decays the same leaves."""
+    rng = np.random.default_rng(6)
+    n, d = 2, 4
+
+    def tree():
+        return {"blocks": {"pos0": {"scale": rng.standard_normal((n, d)).astype(np.float32)}},
+                "final": rng.standard_normal((d,)).astype(np.float32)}
+
+    def port(t):
+        return {"layers": [{"scale": torch.tensor(t["blocks"]["pos0"]["scale"][i])}
+                           for i in range(n)],
+                "final": torch.tensor(t["final"])}
+
+    jp, jg = tree(), tree()
+    want, _ = joptim.adamw_update(joptim.AdamWConfig(), jp, jg, joptim.adamw_init(jp),
+                                  lr=1e-2)
+    p = port(jp)
+    got, _ = optim.adamw_update(optim.AdamWConfig(), p, port(jg), optim.adamw_init(p),
+                                lr=1e-2)
+    for i in range(n):
+        np.testing.assert_allclose(got["layers"][i]["scale"].numpy(),
+                                   np.asarray(want["blocks"]["pos0"]["scale"][i]),
+                                   rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(got["final"].numpy(), np.asarray(want["final"]),
+                               rtol=1e-6, atol=1e-6)
+
+
 def test_cosine_lr_matches_reference():
     j, t = joptim.cosine_lr(3e-4, 10, 100), optim.cosine_lr(3e-4, 10, 100)
     for s in (0, 1, 9, 10, 11, 55, 100, 140):

@@ -1,29 +1,34 @@
 #!/usr/bin/env python3
-"""Hold the bf16 attention kernels (K1 forward, K2 and K3 backwards) of this
-tree against their plain versions and, optionally, against another build of
-the same CUDA source, on one NVIDIA card.
+"""Hold the attention kernels (K1 forward, K2 and K3 backwards) of this tree
+against their plain versions and, optionally, against another build of the
+same CUDA source, on one NVIDIA card.
 
     python3 tools/pfa_ab.py [--baseline path/to/packed_flash_attention.cu]
+                            [--baseline-flags "-DNAME=1 ..."]
 
 Builds ``src/repro_torch/kernels/csrc/packed_flash_attention.cu`` (and prints
 the ``-Xptxas -v`` lines of the tensor-core kernels: registers, spills), then
-at small edge cases and at the three attention shapes of the training paths:
+at small edge cases (in bf16 and in fp32) and at the three attention shapes
+of the training paths (bf16):
 
 - compares K1's o with ``fwd_plain`` and dq, dk and dv with
-  ``bwd_dq_plain`` / ``bwd_dkv_plain`` (bf16 tolerance: 2e-2 x max|plain|,
-  1e-2 x ||plain||), and K1's lse with ``fwd_plain``'s (1e-3 absolute on
-  rows that attend anything, exactly -1e30 on rows masked everywhere);
-- with ``--baseline``, builds that source with the same flags, holds its K1
-  against ``fwd_plain`` too (its arithmetic may differ from this tree's),
-  requires its dq, dk, dv to be bitwise equal to this tree's on the same
-  inputs (for a change that keeps the backwards' arithmetic), and times
-  K1, K2 and K3 at the path shapes in turns: baseline, this tree, this
-  tree, baseline (CUDA events, 20 launches each);
+  ``bwd_dq_plain`` / ``bwd_dkv_plain`` (relative to each plain output: bf16
+  2e-2 max|err|, 1e-2 ||err||; fp32 1e-4, 1e-5), and K1's lse with
+  ``fwd_plain``'s (1e-3 absolute in bf16, 1e-4 in fp32, on rows that attend
+  anything; exactly -1e30 on rows masked everywhere);
+- with ``--baseline``, builds that source with the same flags (and
+  ``--baseline-flags``), holds its K1 against ``fwd_plain`` too, requires
+  its o, lse, dq, dk and dv to be bitwise equal to this tree's on the same
+  inputs (for a change that keeps the kernels' arithmetic), and times K1,
+  K2 and K3 at the path shapes in turns: baseline, this tree, this tree,
+  baseline (CUDA events, 20 launches each);
 - without it, times this tree's K1, K2 and K3 at the path shapes.
 
 A baseline source is typically the parent commit's file, unpacked with
-``git archive`` into a directory git ignores.  Exits non-zero on any
-disagreement.  Needs a CUDA card and ``nvcc``.
+``git archive`` into a directory git ignores; or this tree's own file with
+``--baseline-flags=-DPFA_PAD_ALWAYS=1``, which times the kernels a padded
+head dim runs (PAD true) against the full-width ones at D 64 and 128.
+Exits non-zero on any disagreement.  Needs a CUDA card and ``nvcc``.
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ import argparse
 import ctypes
 import hashlib
 import os
+import shlex
 import subprocess
 import sys
 
@@ -41,6 +47,8 @@ sys.path.insert(0, os.path.join(HERE, "..", "src"))
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", help="another packed_flash_attention.cu to compare with")
+    ap.add_argument("--baseline-flags", default="",
+                    help="extra nvcc flags for the baseline build, e.g. -DPFA_PAD_ALWAYS=1")
     ap.add_argument("--iters", type=int, default=20)
     args = ap.parse_args()
 
@@ -65,11 +73,12 @@ def main() -> int:
     print_ptxas("new", build.LOG.ptxas.get("packed_flash_attention",
                                            ["(library loaded from the build cache)"]))
     if args.baseline:
-        src = open(args.baseline, "rb").read()
+        src = open(args.baseline, "rb").read() + args.baseline_flags.encode()
         out = os.path.join(str(build.BUILD_DIR),
                            f"libpfa-baseline-{hashlib.sha256(src).hexdigest()[:16]}.so")
-        proc = subprocess.run([build.nvcc(), *build.ARCH_FLAGS, *build.FLAGS, "-o", out,
-                               args.baseline], capture_output=True, text=True)
+        proc = subprocess.run([build.nvcc(), *build.ARCH_FLAGS, *build.FLAGS,
+                               *shlex.split(args.baseline_flags), "-o", out, args.baseline],
+                              capture_output=True, text=True)
         if proc.returncode != 0:
             print(proc.stdout + proc.stderr, file=sys.stderr)
             return 1
@@ -96,9 +105,9 @@ def main() -> int:
                 seg[b, cuts[i]:cuts[i + 1]] = i + 1
         return seg.to(dev)
 
-    def case(B, KH, G, S, D, causal, window, seg_q, seg_k=None):
+    def case(B, KH, G, S, D, causal, window, seg_q, seg_k=None, dtype=torch.bfloat16):
         """K1's and K2/K3's arguments; the backwards take this tree's o, lse."""
-        rnd = lambda *s: torch.randn(*s, generator=gen, device=dev).to(torch.bfloat16)  # noqa: E731
+        rnd = lambda *s: torch.randn(*s, generator=gen, device=dev).to(dtype)  # noqa: E731
         q, k, v = rnd(B, KH, G, S, D), rnd(B, KH, S, D), rnd(B, KH, S, D)
         do = rnd(B, KH, G, S, D)
         seg_k = seg_q if seg_k is None else seg_k
@@ -125,6 +134,11 @@ def main() -> int:
                   segments(4096, [[0, 700, 1900, 2000, 3500, 4000], [0, 300, 2600, 4096]])),
     }
     timed = ("encoder", "llm", "jamba")
+    # the edge cases again in fp32 (the CUDA-core kernels)
+    cases.update({f"{name}_fp32": (*c, *(() if len(c) == 9 else (None,)), torch.float32)
+                  for name, c in list(cases.items()) if name not in timed})
+    # (max|err| / max|plain|, ||err|| / ||plain||) and lse's absolute bound
+    TOL = {torch.bfloat16: (2e-2, 1e-2, 1e-3), torch.float32: (1e-4, 1e-5, 1e-4)}
 
     def errors(got, ref):
         """(||err|| / ||plain||, max|err| / max|plain|) of each output."""
@@ -153,20 +167,27 @@ def main() -> int:
     ok_all = True
     for name, c in cases.items():
         fa, a = case(*c)
+        t_max, t_rel, t_lse = TOL[fa[0].dtype]
         o_plain, lse_plain = pfa.fwd_plain(*fa[:-2], 256, 256)
         dead = lse_plain == pfa.NEG_INF
+        fwd = {}
         for which in libs:
             use(which)
-            o, lse = pfa.flash_fwd(*fa)
+            o, lse = fwd[which] = pfa.flash_fwd(*fa)
             rel, mx = errors((o,), (o_plain,))
             lse_err = (lse - lse_plain)[~dead].abs().max().item() if (~dead).any() else 0.0
-            ok = (rel[0] <= 1e-2 and mx[0] <= 2e-2 and lse_err <= 1e-3
+            ok = (rel[0] <= t_rel and mx[0] <= t_max and lse_err <= t_lse
                   and torch.equal(lse[dead], lse_plain[dead])
                   and bool(torch.all(o[dead] == 0)))
             ok_all &= ok
             print(f"{name}: K1 {which} vs plain {'OK' if ok else 'FAIL'} o ||err||/||plain|| "
                   f"{rel[0]:.2e}, max|err|/max|plain| {mx[0]:.2e}; lse max|err| {lse_err:.2e} "
                   f"on live rows, {int(dead.sum())} rows masked everywhere", flush=True)
+        if "baseline" in libs:
+            same = all(torch.equal(x, y) for x, y in zip(fwd["new"], fwd["baseline"]))
+            ok_all &= same
+            print(f"{name}: K1 o, lse vs baseline {'bitwise equal' if same else 'DIFFER'}",
+                  flush=True)
         outs = {}
         for which in libs:
             use(which)
@@ -174,7 +195,7 @@ def main() -> int:
         plain = (pfa.bwd_dq_plain(*a), *pfa.bwd_dkv_plain(*a))
         torch.cuda.synchronize()
         rel, mx = errors(outs["new"], plain)
-        ok = all(x <= 1e-2 for x in rel) and all(x <= 2e-2 for x in mx)
+        ok = all(x <= t_rel for x in rel) and all(x <= t_max for x in mx)
         same = "baseline" not in libs or all(
             torch.equal(x, y) for x, y in zip(outs["new"], outs["baseline"]))
         ok_all &= ok and same
