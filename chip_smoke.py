@@ -19,8 +19,14 @@ Phases, each reported on its own lines:
                 case must give bitwise equal o, lse, dq, dk, dv; rows masked
                 everywhere give o = 0, lse = -1e30 and dq = 0 exactly; K4–K7 outputs and gradients
                 (through their autograd Functions) at RWKV6-7B's and Jamba's
-                scan shapes (bf16) and at small fp32 cases (prime lengths,
-                several chunks, B > 1, a nonzero final-state cotangent for K7);
+                scan shapes (bf16) and at small cases (prime lengths, several
+                chunks, B > 1, a nonzero final-state cotangent for K7; for K4/K5
+                S 1 and 5, under a chunk, and di 36, not a multiple of K5's 8
+                channels a warp); the scans' fp32 outputs (K4's h_init, K5's
+                gradients and partials on every Mamba case; K6's states and
+                K7's gradients at the bf16 shape) against the plain versions'
+                at fp32's tolerance, in bf16 too; K5 run twice on the Mamba
+                cases must give bitwise equal gradients;
   4. timing   — every kernel at its path shapes with CUDA events, beside its
                 plain version, the card's bound and the PyTorch yardstick
                 where one exists (SDPA for K1–K3; none computes a scan);
@@ -43,7 +49,8 @@ Phases, each reported on its own lines:
                 at full width, depth cut to 8 layers, on rows packed by
                 ``pack_items`` from the mixed data; launch counts of K4–K7 and
                 of K1–K3 at Jamba's attention shape per step (K1–K3 on the
-                tensor cores);
+                tensor cores); one more Jamba step under ``torch.profiler``:
+                K4's and K5's device ms in the step and the idle share;
   9. ssm paths— at full width and 2 layers, each decoder with the scan
                 kernels against the naive scans (Python loops over time);
  10. summary  — one JSON line of the kernels, the card line, then the result.
@@ -57,6 +64,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -106,7 +114,11 @@ GEMMA = dict(KH=1, G=8, D=256)
 # Kernel vs plain, per output, both relative to the plain output itself:
 # (max|err| / max|plain|, ||err|| / ||plain||).  In bf16 both sides round
 # their fp32 results once (2^-8 relative), so they differ by about one bf16
-# ulp where they differ at all; in fp32 only by summation order.
+# ulp where they differ at all; in fp32 only by summation order.  The scans'
+# fp32 outputs (K4's h_init, K5's gradients and partials, K6's states, K7's
+# gradients) are held to the fp32 pair in a bf16 case too: both sides compute
+# them in fp32 from the same bf16 inputs (1.0e-6 of max apart at Jamba's
+# shape, 3.7e-7 at RWKV6-7B's, on an H100).
 TOL = {"bfloat16": (2e-2, 1e-2), "float32": (1e-4, 1e-5)}
 # Kernel path vs naive path through the bf16 model, relative.  Measured on
 # an H100 at 2 layers (loss, grad norm, gradients): InternVL2-2B's attention
@@ -192,13 +204,16 @@ def main() -> int:
         return rel_errors(("o", "dq", "dk", "dv"), *res)
 
     def rel_errors(names, kernel, plain):
-        """Per output: (max|err|, max|plain|, ||err|| / ||plain||)."""
+        """Per output: (max|err|, max|plain|, ||err|| / ||plain||); where the
+        plain output is all zeros (K5's dA at S 1: h_init = 0) the ratio is
+        0 for an all-zero kernel output and inf otherwise."""
         torch.cuda.synchronize()
         errs = {}
         for nm, a, b in zip(names, kernel, plain):
             d, b = a.float() - b.float(), b.float()
+            e, n = d.norm().item(), b.norm().item()
             errs[nm] = (d.abs().max().item(), b.abs().max().item(),
-                        (d.norm() / b.norm()).item())
+                        e / n if n > 0 else (0.0 if e == 0 else math.inf))
         return errs
 
     def check_pair(cname, errs, dtype):
@@ -424,15 +439,64 @@ def main() -> int:
         "rwkv6_S97_M32_ds/f32": lambda: rwkv_case(1, 2, 97, 32, torch.float32, True),
         "mamba_prime_S257_di300/f32": lambda: mamba_case(2, 257, 300, 16, torch.float32),
         "mamba_S97_B3_di130/f32": lambda: mamba_case(3, 97, 130, 16, torch.float32),
+        "mamba_S1_di36/f32": lambda: mamba_case(1, 1, 36, 16, torch.float32),
+        "mamba_S5_B3_di36/f32": lambda: mamba_case(3, 5, 36, 16, torch.float32),
+        "mamba_S5_B3_di36/bf16": lambda: mamba_case(3, 5, 36, 16, torch.bfloat16),
     }
     log(f"[compare] scan chunks: K4/K5 {mamba_scan.CHUNK}, K6/K7 {rwkv6_scan.CHUNK}")
+
+    def raw_pair(c):
+        """The scans' fp32 outputs, kernel vs plain version on the same
+        inputs, whatever the case's type (both sides compute in fp32, so
+        they are held to fp32's TOL; the autograd outputs above are rounded
+        to the inputs' type).  Mamba: K4's h_init, then K5 on it twice (are
+        the runs bitwise equal?), the plain K5 on it with the sequence
+        zero-padded to a chunk multiple (dt = u = 0: identity steps).
+        RWKV6 (S a chunk multiple): K6's s_final and s_init, K7 on them
+        with no final-state cotangent, as training runs it."""
+        if c["kind"] == "rwkv6":
+            r, k, v, w, uu = c["ins"]
+            B, H, S, M = r.shape
+            dy = c["cots"][0]
+            ds = torch.zeros((B, H, M, M), device=dev)
+            _, s_fin, s_init = rwkv6_scan.wkv_fwd(r, k, v, w, uu, rwkv6_scan.CHUNK)
+            _, p_fin, p_init = rwkv6_scan.fwd_plain(r, k, v, w, uu, rwkv6_scan.CHUNK)
+            got = rwkv6_scan.wkv_bwd(r, k, v, w, uu, s_init, dy, ds, rwkv6_scan.CHUNK)
+            ref = rwkv6_scan.bwd_plain(r, k, v, w, uu, s_init, dy, ds, rwkv6_scan.CHUNK)
+            return rel_errors(("s_final", "s_init", "dr", "dk", "dv", "dw", "du"),
+                              (s_fin, s_init, *got), (p_fin, p_init, *ref)), True
+        u, dtt, Bt, Ct, A, D = c["ins"]
+        dy = c["cots"][0]
+        S = u.shape[1]
+        chunk = min(mamba_scan.CHUNK, S)
+        S_p = -(-S // chunk) * chunk
+        pad = lambda t: torch.nn.functional.pad(t, (0, 0, 0, S_p - S))  # noqa: E731
+        _, h_init = mamba_scan.scan_fwd(u, dtt, Bt, Ct, A, D, chunk)
+        _, p_init = mamba_scan.fwd_plain(pad(u), pad(dtt), pad(Bt), pad(Ct), A, D, chunk)
+        runs = [mamba_scan.scan_bwd(u, dtt, Bt, Ct, A, D, h_init, dy, chunk)
+                for _ in range(2)]
+        ref = mamba_scan.bwd_plain(pad(u), pad(dtt), pad(Bt), pad(Ct), A, D, h_init,
+                                   pad(dy), chunk)
+        ref = [x[:, :S] for x in ref[:2]] + [x[:, :, :S] for x in ref[2:4]] + list(ref[4:])
+        return (rel_errors(("h_init", "du", "ddt", "dB", "dC", "dA", "dD"),
+                           (h_init, *runs[0]), (p_init, *ref)),
+                all(torch.equal(a, b) for a, b in zip(*runs)))
+
     for cname, make in scan_cases.items():
         c = make()
         errs = scan_pair(c)
         check_pair(cname, errs, c["ins"][0].dtype)
-        if cname.endswith("/bf16"):
+        fwd, bwd = ("K6", "K7") if c["kind"] == "rwkv6" else ("K4", "K5")
+        if c["kind"] == "mamba" or c["ins"][0].dtype == torch.bfloat16:
+            raw, same = raw_pair(c)
+            check_pair(f"{cname} {fwd}/{bwd} fp32 outputs", raw, torch.float32)
+        if c["kind"] == "mamba":
+            log(f"[compare] {cname}: K5 twice on the same inputs: "
+                f"{'bitwise equal' if same else 'DIFFER'}")
+            if not same:
+                raise SystemExit(f"K5 is not deterministic: {cname}")
+        if cname.endswith("/bf16") and cname.split("/")[0] in SCAN_SHAPES:
             shape = cname.split("/")[0]
-            fwd, bwd = ("K6", "K7") if c["kind"] == "rwkv6" else ("K4", "K5")
             n_out = 2 if c["kind"] == "rwkv6" else 1
             max_err[(fwd, shape)] = max(e for e, _, _ in list(errs.values())[:n_out])
             max_err[(bwd, shape)] = max(e for e, _, _ in list(errs.values())[n_out:])
@@ -604,10 +668,11 @@ def main() -> int:
             raise SystemExit(f"{tag}: K1-K3 launches off the tensor cores: {off}")
         log(f"[{tag}] every K1/K2/K3 launch took the tensor cores")
 
-    def profile_step(fn, tag, shapes, step_s):
+    def profile_step(fn, tag, shapes, step_s, scans=()):
         """Run ``fn`` (one train step) under torch.profiler and print the
-        device time per kernel name for K1-K3 at each of ``shapes`` (beside
-        the isolated time, phase 4), the ten kernels with the most device time, and
+        device time per kernel name for K1-K3 at each of ``shapes`` and for
+        the bf16 scan kernels ``scans`` at ``shapes[0]`` (beside the isolated
+        time, phase 4), the ten kernels with the most device time, and
         the device's idle share: over the traced step (whose host side the
         profiler slows) and against ``step_s``, the untraced step's seconds.
         A trace with no device events prints "not measured"."""
@@ -667,6 +732,15 @@ def main() -> int:
                         f"(isolated {iso:.3f} ms); {[nm[:60] for nm, _, _ in hits]}")
                 else:
                     log(f"[profile] {tag} {kn} {shape}: no launch found in the trace")
+        for kn in scans:
+            # K4 fwd_kernel<__nv_bfloat16, 16>, K5 bwd_kernel<__nv_bfloat16, 16, VEC>
+            pat = re.compile(rf"\b{'fwd' if kn == 'K4' else 'bwd'}_kernel<__nv_bfloat16, 16[,>]")
+            hits = [(nm, tot, n) for nm, (tot, n) in per_name.items() if pat.search(nm)]
+            tot, n = sum(t for _, t, _ in hits), sum(c for _, _, c in hits)
+            iso = timing[(kn, shapes[0])]["ms"]
+            log(f"[profile] {tag} {kn}: {tot / 1e3:.3f} ms device time a step over {n} "
+                f"launches, {tot / 1e3 / max(n, 1):.3f} ms per launch (isolated {iso:.3f} "
+                f"ms); {[nm[:70] for nm, _, _ in hits]}")
         top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:10]
         for nm, (tot, n) in top:
             log(f"[profile] {tag} top: {tot / 1e3:9.3f} ms {n:5d} x {nm[:110]}")
@@ -832,7 +906,9 @@ def main() -> int:
         for mod in (pfa, mamba_scan, rwkv6_scan):
             mod.reset_launches()
 
-    def train_decoder(name, cfg, full):
+    def train_decoder(name, cfg, full, profile=False):
+        """3 AdamW steps of ``cfg``; with ``profile``, one more step under
+        torch.profiler after the counts are read (phase 8)."""
         t0 = time.perf_counter()
         params = model.init(cfg, seed=0, device=dev)
         opt = optim.adamw_init(params)
@@ -847,14 +923,16 @@ def main() -> int:
         train_step = step.make_train_step(cfg, optim.AdamWConfig(), ctx=FwdCtx())
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
+        seconds = []
         for i, b in enumerate(batches):
             t0 = time.perf_counter()
             params, opt, m = train_step(params, opt, b, 3e-4)
             loss = m["loss"].item()
             torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
             used = (b["segment_ids"] > 0).sum(-1).tolist()
             log(f"[decoders] {name} step {i}: loss {loss:.5f}, "
-                f"{time.perf_counter() - t0:.3f} s, tokens in segments per row {used}")
+                f"{seconds[-1]:.3f} s, tokens in segments per row {used}")
             if not math.isfinite(loss):
                 raise SystemExit(f"{name}: non-finite loss")
         count_gemma()
@@ -870,12 +948,15 @@ def main() -> int:
         log(f"[decoders] {name}: launches over 3 steps " + ", ".join(
             f"{kn} {n} ({n / 3:g}/step)" for (kn, _), n in counts.items()) +
             f"; max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if profile:
+            profile_step(lambda: train_step(params, opt, batches[0], 3e-4), name, (name,),
+                         sum(seconds[1:]) / len(seconds[1:]), scans=("K4", "K5"))
         del params, opt, batches, train_step
         torch.cuda.empty_cache()
         return counts
 
     dec_counts = {**train_decoder("rwkv6-7b", rwkv_cfg, rwkv6_7b.CFG),
-                  **train_decoder("jamba", jamba_cfg, jamba_v0_1_52b.CFG)}
+                  **train_decoder("jamba", jamba_cfg, jamba_v0_1_52b.CFG, profile=True)}
     on_path = [("K6", "rwkv6-7b"), ("K7", "rwkv6-7b"), ("K4", "jamba"), ("K5", "jamba"),
                ("K1", "jamba"), ("K2", "jamba"), ("K3", "jamba")]
     if any(dec_counts[key] == 0 for key in on_path):

@@ -78,19 +78,27 @@ def _target(name: str) -> tuple[Path, list[str]]:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so", cmd_tail
 
 
-def _compile(name: str, out: Path, tail: list[str]) -> None:
+def _nvcc(src: Path, out: Path, tail: list[str]) -> list[str]:
+    """Compile ``src`` into ``out``; its ptxas lines and warnings (raises on
+    a failed build)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run([nvcc(), *tail, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+    proc = subprocess.run([nvcc(), *tail, "-o", str(tmp), str(src)],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    LOG.seconds[name] = time.perf_counter() - t0
-    LOG.ptxas[name] = [ln for ln in proc.stdout.splitlines()
-                       if "registers" in ln or "smem" in ln or "spill" in ln
-                       or "Compiling entry" in ln or "arning" in ln]
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
+        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}")
     os.replace(tmp, out)
+    return [ln for ln in proc.stdout.splitlines()
+            if "registers" in ln or "smem" in ln or "spill" in ln
+            or "Compiling entry" in ln or "arning" in ln]
+
+
+def _bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
+    for fn, argtypes in SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+    return lib
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -99,14 +107,29 @@ def load(name: str) -> ctypes.CDLL:
         return _LOADED[name]
     out, tail = _target(name)
     if not out.exists():
-        _compile(name, out, tail)
-    lib = ctypes.CDLL(str(out))
-    for fn, argtypes in SIGNATURES[name].items():
-        f = getattr(lib, fn)
-        f.argtypes = argtypes
-        f.restype = ctypes.c_int
+        t0 = time.perf_counter()
+        LOG.ptxas[name] = _nvcc(CSRC / f"{name}.cu", out, tail)
+        LOG.seconds[name] = time.perf_counter() - t0
+    _LOADED[name] = _bind(ctypes.CDLL(str(out)), name)
+    return _LOADED[name]
+
+
+def load_from(src, name: str, extra_flags=()) -> tuple[ctypes.CDLL, list[str]]:
+    """Build another source of library ``name`` (e.g. a parent commit's
+    ``csrc/<name>.cu``) with this module's flags and ``extra_flags``, and
+    load it with ``name``'s signatures: (library, its ptxas lines).  The
+    wrappers go on calling ``load(name)`` until ``use`` swaps it in."""
+    tail = ARCH_FLAGS + FLAGS + list(extra_flags)
+    digest = hashlib.sha256(Path(src).read_bytes() + " ".join(tail).encode())
+    out = BUILD_DIR / f"lib{name}-from-{digest.hexdigest()[:16]}.so"
+    lines = _nvcc(Path(src), out, tail)
+    return _bind(ctypes.CDLL(str(out)), name), lines
+
+
+def use(name: str, lib: ctypes.CDLL) -> None:
+    """Make ``lib`` the library the wrappers of ``name`` launch (an A/B of two
+    builds: ``load(name)`` and one from ``load_from``)."""
     _LOADED[name] = lib
-    return lib
 
 
 def load_all(names) -> dict[str, ctypes.CDLL]:

@@ -24,10 +24,11 @@ same chunked algorithm as sequential torch loops.  The entry point
 ``mamba_scan_bsd`` routes once: the kernels for a CUDA tensor, the plain
 versions for a CPU tensor.
 
-The chunk is internal (no output depends on it): ``CHUNK`` steps, which
-keeps K5's replay history of ``chunk × N × C_BLK`` f32 in shared memory.  The
-plain versions take inputs padded to a chunk multiple (dt = 0: a padded step
-is the identity); the CUDA kernels load that value past the end.
+The chunk is internal (no output depends on it): ``CHUNK`` steps.  K5 keeps
+a chunk's replay history in registers, unrolled over ``K5_CHUNK`` steps, so
+it takes chunks of at most that many.  The plain versions take inputs padded
+to a chunk multiple (dt = 0: a padded step is the identity); the CUDA kernels
+load that value past the end.
 """
 from __future__ import annotations
 
@@ -40,7 +41,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.blocking import MAMBA_PAD_DT, pad_axis, pick_block
 
 CHUNK = 16
-C_BLK = 128          # channels per CUDA block (one thread each; CB in the .cu)
+K5_CHUNK = 16        # the longest chunk K5 takes (K5_CH in the .cu)
+C_BLK = 128          # channels per CUDA block (CB in the .cu)
 D_STATE = 16         # the state width the CUDA kernels take
 
 # Kernel launches since the last reset: kernel ("fwd" K4, "bwd" K5) -> count.
@@ -122,8 +124,9 @@ def bwd_plain(u, dt, B_t, C_t, A, D, h_init, dy, chunk):
 # --------------------------------------------------------------------------- #
 # CUDA launches
 # --------------------------------------------------------------------------- #
-def _check(u, dt, B_t, C_t, A, D, chunk, extra=()):
-    """Raise on what the CUDA kernels do not take."""
+def _check(u, dt, B_t, C_t, A, D, chunk, extra=(), bwd=False):
+    """Raise on what the CUDA kernels do not take (``bwd``: K5's, else
+    K4's)."""
     Bsz, S, di = u.shape
     N = A.shape[1]
     if N != D_STATE:
@@ -139,9 +142,9 @@ def _check(u, dt, B_t, C_t, A, D, chunk, extra=()):
             or A.shape != (di, N) or D.shape != (di,):
         raise ValueError("shapes must be u, dt (B, S, di); B_t, C_t (B, S, N); "
                          "A (di, N); D (di,)")
-    smem = 4 * (chunk * N * C_BLK + 4 * chunk * C_BLK + 2 * chunk * N)
-    if chunk < 1 or smem > build.SMEM_PER_BLOCK:
-        raise ValueError(f"chunk {chunk} needs {smem} B of shared memory")
+    if chunk < 1 or (bwd and chunk > K5_CHUNK):
+        raise ValueError(f"chunk {chunk}: K4 takes any of 1 step or more, K5 1 to "
+                         f"{K5_CHUNK} (the replay history it holds in registers)")
     if Bsz > 65535:
         raise ValueError("batch exceeds the grid's y limit")
     for t in (u, dt, B_t, C_t, A, D, *extra):
@@ -174,7 +177,7 @@ def scan_bwd(u, dt, B_t, C_t, A, D, h_init, dy, chunk):
     """K5 → (du, ddt, dB partial, dC partial, dA partial, dD partial)."""
     Bsz, S, di = u.shape
     N = D_STATE
-    _check(u, dt, B_t, C_t, A, D, chunk, (h_init, dy))
+    _check(u, dt, B_t, C_t, A, D, chunk, (h_init, dy), bwd=True)
     if dy.shape != u.shape or dy.dtype != u.dtype:
         raise ValueError("dy must match u's shape and dtype")
     if h_init.shape != (Bsz, -(-S // chunk), di, N) or h_init.dtype != torch.float32:

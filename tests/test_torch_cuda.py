@@ -168,23 +168,54 @@ def test_cuda_rwkv6_scan_matches_plain(dtype):
         _assert_close(outs, dt)
 
 
+# (B, S, di) of the Mamba scan cases
+MAMBA_CASES = [(2, 131, 300), (1, 64, 128), (3, 17, 40), (1, 1, 36), (3, 5, 36)]
+
+
+def _mamba_inputs(gen, dt, B, S, di):
+    """u, dt, B_t, C_t (in ``dt``), A, D (fp32) on the card."""
+    rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda")  # noqa: E731
+    return [rnd(B, S, di).to(dt), torch.nn.functional.softplus(rnd(B, S, di) - 1).to(dt),
+            rnd(B, S, 16).to(dt), rnd(B, S, 16).to(dt), -torch.exp(rnd(di, 16) * 0.3),
+            rnd(di)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_mamba_scan_matches_plain(dtype):
-    """K4 forward and K5 gradients; channels that do not fill a block."""
+    """K4 forward and K5 gradients; channels that do not fill a block (di 36
+    is not a multiple of a warp's 8 channels in K5), S 1 and 5 (under a
+    chunk), B 3."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     dt = getattr(torch, dtype)
     gen = torch.Generator(device="cuda").manual_seed(2)
-    for (B, S, di) in [(2, 131, 300), (1, 64, 128), (3, 17, 40)]:
-        rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda")  # noqa: E731
-        ins = [rnd(B, S, di).to(dt), torch.nn.functional.softplus(rnd(B, S, di) - 1).to(dt),
-               rnd(B, S, 16).to(dt), rnd(B, S, 16).to(dt), -torch.exp(rnd(di, 16) * 0.3),
-               rnd(di)]
-        cy = rnd(B, S, di)
+    for (B, S, di) in MAMBA_CASES:
+        ins = _mamba_inputs(gen, dt, B, S, di)
+        cy = torch.randn(B, S, di, generator=gen, device="cuda")
         outs = []
         for plain in (False, True):
             ts = [t.clone().requires_grad_(True) for t in ins]
             y = mamba_scan.mamba_scan_bsd(*ts, plain=plain)
             outs.append([y, *torch.autograd.grad((y.float() * cy).sum(), ts)])
         _assert_close(outs, dt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_mamba_backward_is_deterministic(dtype):
+    """K5 run twice on the same inputs gives bitwise equal du, ddt and
+    partials: no atomics, the cross-warp sums in a fixed order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for (B, S, di) in MAMBA_CASES:
+        u, dts, Bt, Ct, A, D = _mamba_inputs(gen, dt, B, S, di)
+        dy = torch.randn(B, S, di, generator=gen, device="cuda").to(dt)
+        chunk = min(mamba_scan.CHUNK, S)
+        _, h_init = mamba_scan.scan_fwd(u, dts, Bt, Ct, A, D, chunk)
+        runs = [mamba_scan.scan_bwd(u, dts, Bt, Ct, A, D, h_init, dy, chunk)
+                for _ in range(2)]
+        for a, b in zip(*runs):
+            assert torch.equal(a, b)

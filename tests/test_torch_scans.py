@@ -259,6 +259,13 @@ def test_cuda_checks_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="state width"):
         mamba_scan._check(u, u, bc[..., :8], bc[..., :8], A[:, :8], D,
                           mamba_scan.CHUNK)
+    # K5 holds a chunk's history in registers: 16 steps at most; K4 takes any
+    mamba_scan._check(u, u, bc, bc, A, D, 64)
+    mamba_scan._check(u, u, bc, bc, A, D, mamba_scan.K5_CHUNK, bwd=True)
+    with pytest.raises(ValueError, match="history"):
+        mamba_scan._check(u, u, bc, bc, A, D, mamba_scan.K5_CHUNK + 1, bwd=True)
+    with pytest.raises(ValueError, match="chunk 0"):
+        mamba_scan._check(u, u, bc, bc, A, D, 0)
 
 
 def test_scan_work_counts_match_reference():

@@ -264,15 +264,20 @@ def test_three_train_steps_track_reference(kind):
     train = step.make_train_step(cfg, optim.AdamWConfig(lr=lr),
                                  ctx=model.FwdCtx(attn_block=8))
     jopt, opt = joptim.adamw_init(jp), optim.adamw_init(params)
+    p0 = [p.detach().clone() for p in tree_leaves(params)]
     for b in _packed(3):
         jp, jopt, jm = jtrain(jp, jopt, jax.tree.map(jnp.asarray, b), lr)
         params, opt, m = train(params, opt, step.as_tensors(b, device="cpu"), lr)
         np.testing.assert_allclose(m["loss"].item(), float(jm["loss"]),
                                    rtol=STACK_TOL, atol=STACK_TOL)
     want = params_from_jax(jax.tree.map(np.asarray, jp), cfg, device="cpu")
-    for a, b in zip(tree_leaves(params), tree_leaves(want)):
+    for a, b, q0 in zip(tree_leaves(params), tree_leaves(want), p0):
         np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(),
                                    rtol=STACK_TOL, atol=STACK_TOL)
+        # the update itself, within 0.1 lr (see test_torch_llava.py)
+        got, ref = a.detach() - q0, b.detach() - q0
+        assert ref.abs().max() > lr           # the reference's weights moved
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0, atol=0.1 * lr)
     assert opt["step"] == 3
 
 

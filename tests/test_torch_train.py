@@ -111,6 +111,7 @@ def test_three_train_steps_track_reference():
     train = step.make_train_step(CFG, optim.AdamWConfig(lr=lr),
                                  ctx=FwdCtx(attn_impl="kernel"))
     jopt, opt = joptim.adamw_init(jp), optim.adamw_init(params)
+    p0 = [p.detach().clone() for p in tree_leaves(params)]
     for b in batches:
         jp, jopt, jm = jtrain(jp, jopt, jax.tree.map(jnp.asarray, b), lr)
         params, opt, m = train(params, opt, step.as_tensors(b, device="cpu"), lr)
@@ -119,9 +120,13 @@ def test_three_train_steps_track_reference():
         assert np.isnan(m["moe_drop_rate"].item())
         assert np.isnan(m["moe_imbalance"].item())
     want = params_from_jax(jax.tree.map(np.asarray, jp), CFG, device="cpu")
-    for a, b in zip(tree_leaves(params), tree_leaves(want)):
+    for a, b, q0 in zip(tree_leaves(params), tree_leaves(want), p0):
         np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(),
                                    rtol=TOL, atol=TOL)
+        # the update itself, within 0.1 lr (see test_torch_llava.py)
+        got, ref = a.detach() - q0, b.detach() - q0
+        assert ref.abs().max() > lr           # the reference's weights moved
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0, atol=0.1 * lr)
     assert opt["step"] == 3
 
 

@@ -33,15 +33,10 @@ Exits non-zero on any disagreement.  Needs a CUDA card and ``nvcc``.
 from __future__ import annotations
 
 import argparse
-import ctypes
-import hashlib
-import os
 import shlex
-import subprocess
 import sys
 
-HERE = os.path.dirname(os.path.abspath(__file__))
-sys.path.insert(0, os.path.join(HERE, "..", "src"))
+import _ab
 
 
 def main() -> int:
@@ -49,7 +44,6 @@ def main() -> int:
     ap.add_argument("--baseline", help="another packed_flash_attention.cu to compare with")
     ap.add_argument("--baseline-flags", default="",
                     help="extra nvcc flags for the baseline build, e.g. -DPFA_PAD_ALWAYS=1")
-    ap.add_argument("--iters", type=int, default=20)
     args = ap.parse_args()
 
     import torch
@@ -69,30 +63,13 @@ def main() -> int:
             elif "arning" in ln:
                 print(f"ptxas {which}", ln.strip())
 
-    libs = {"new": build.load("packed_flash_attention")}
-    print_ptxas("new", build.LOG.ptxas.get("packed_flash_attention",
-                                           ["(library loaded from the build cache)"]))
-    if args.baseline:
-        src = open(args.baseline, "rb").read() + args.baseline_flags.encode()
-        out = os.path.join(str(build.BUILD_DIR),
-                           f"libpfa-baseline-{hashlib.sha256(src).hexdigest()[:16]}.so")
-        proc = subprocess.run([build.nvcc(), *build.ARCH_FLAGS, *build.FLAGS,
-                               *shlex.split(args.baseline_flags), "-o", out, args.baseline],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            print(proc.stdout + proc.stderr, file=sys.stderr)
-            return 1
-        print_ptxas("baseline", [ln for ln in (proc.stdout + proc.stderr).splitlines()
-                                 if "registers" in ln or "spill" in ln or "Compiling entry" in ln
-                                 or "arning" in ln])
-        lib = ctypes.CDLL(out)
-        for fn, argtypes in build.SIGNATURES["packed_flash_attention"].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        libs["baseline"] = lib
+    libs, lines = _ab.libraries("packed_flash_attention", args.baseline,
+                                shlex.split(args.baseline_flags))
+    for which, ls in lines.items():
+        print_ptxas(which, ls or ["(library loaded from the build cache)"])
 
     def use(which):
-        build._LOADED["packed_flash_attention"] = libs[which]
+        build.use("packed_flash_attention", libs[which])
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -152,18 +129,6 @@ def main() -> int:
     def fmt(xs):
         return "[" + ", ".join(f"{x:.2e}" for x in xs) + "]"
 
-    def cuda_ms(fn):
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(args.iters):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
-        return a.elapsed_time(b) / args.iters
-
     ok_all = True
     for name, c in cases.items():
         fa, a = case(*c)
@@ -204,17 +169,12 @@ def main() -> int:
               + ("" if "baseline" not in libs else
                  f"; vs baseline {'bitwise equal' if same else 'DIFFER'}"), flush=True)
         if name in timed:
-            order = ("baseline", "new", "new", "baseline") if "baseline" in libs else ("new",)
-            times = []
-            for which in order:
-                use(which)
-                times.append(f"{which}: K1 {cuda_ms(lambda: pfa.flash_fwd(*fa)):.4f} "
-                             f"K2 {cuda_ms(lambda: pfa.flash_bwd_dq(*a)):.4f} "
-                             f"K3 {cuda_ms(lambda: pfa.flash_bwd_dkv(*a)):.4f} ms")
-            print(f"{name}: " + ", ".join(times), flush=True)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True)
-    print(smi.stdout.strip() or smi.stderr.strip())
+            times = _ab.in_turns("packed_flash_attention", libs, lambda: (
+                f"K1 {_ab.cuda_ms(lambda: pfa.flash_fwd(*fa)):.4f} "
+                f"K2 {_ab.cuda_ms(lambda: pfa.flash_bwd_dq(*a)):.4f} "
+                f"K3 {_ab.cuda_ms(lambda: pfa.flash_bwd_dkv(*a)):.4f} ms"))
+            print(f"{name}: " + ", ".join(f"{w}: {t}" for w, t in times), flush=True)
+    print(_ab.card())
     print("ALL_OK" if ok_all else "SOME_FAIL")
     return 0 if ok_all else 1
 
