@@ -20,13 +20,14 @@ Phases, each reported on its own lines:
                 everywhere give o = 0, lse = -1e30 and dq = 0 exactly; K4–K7 outputs and gradients
                 (through their autograd Functions) at RWKV6-7B's and Jamba's
                 scan shapes (bf16) and at small cases (prime lengths, several
-                chunks, B > 1, a nonzero final-state cotangent for K7; for K4/K5
-                S 1 and 5, under a chunk, and di 36, not a multiple of K5's 8
-                channels a warp); the scans' fp32 outputs (K4's h_init, K5's
-                gradients and partials on every Mamba case; K6's states and
-                K7's gradients at the bf16 shape) against the plain versions'
-                at fp32's tolerance, in bf16 too; K5 run twice on the Mamba
-                cases must give bitwise equal gradients;
+                chunks, B > 1, S 1 and 5, under a chunk; for K6/K7 S one past
+                a chunk, M 32 and a nonzero final-state cotangent, and r, k, v,
+                dy one element off 16-byte alignment, K7's plain-load path; for
+                K4/K5 di 36, not a multiple of K5's 8 channels a warp); the
+                scans' fp32 outputs (K4's h_init, K5's gradients and partials,
+                K6's states, K7's gradients, on every scan case) against the
+                plain versions' at fp32's tolerance, in bf16 too; K5 and K7 run
+                twice on each scan case must give bitwise equal gradients;
   4. timing   — every kernel at its path shapes with CUDA events, beside its
                 plain version, the card's bound and the PyTorch yardstick
                 where one exists (SDPA for K1–K3; none computes a scan);
@@ -49,8 +50,9 @@ Phases, each reported on its own lines:
                 at full width, depth cut to 8 layers, on rows packed by
                 ``pack_items`` from the mixed data; launch counts of K4–K7 and
                 of K1–K3 at Jamba's attention shape per step (K1–K3 on the
-                tensor cores); one more Jamba step under ``torch.profiler``:
-                K4's and K5's device ms in the step and the idle share;
+                tensor cores); one more step of each under ``torch.profiler``:
+                K6's and K7's (RWKV6-7B), K4's and K5's (Jamba) device ms in
+                the step and the idle share;
   9. ssm paths— at full width and 2 layers, each decoder with the scan
                 kernels against the naive scans (Python loops over time);
  10. summary  — one JSON line of the kernels, the card line, then the result.
@@ -93,6 +95,14 @@ COUNTER = {"K1": "fwd", "K2": "bwd_dq", "K3": "bwd_dkv"}
 TRACE_NAME = {"K1": "fwd_tc_kernel", "K2": "bwd_dq_tc", "K3": "bwd_dkv_tc"}
 SCAN_NAME = {"K4": "mamba_fwd", "K5": "mamba_bwd", "K6": "wkv6_fwd",
              "K7": "wkv6_bwd"}
+# The bf16 scan kernels in a profiler trace, by name and leading template
+# arguments: K4 fwd_kernel<T, N> and K5 bwd_kernel<T, N, VEC> (mamba_scan.cu,
+# N the state width), K6 fwd_kernel<T, M> and K7 wkv6_bwd_kernel<T, M, VEC>
+# (rwkv6_scan.cu, M the head size); {n} is N or M.
+SCAN_TRACE = {"K4": r"\bfwd_kernel<__nv_bfloat16, {n}>",
+              "K5": r"\bbwd_kernel<__nv_bfloat16, {n}[,>]",
+              "K6": r"\bfwd_kernel<__nv_bfloat16, {n}>",
+              "K7": r"\bwkv6_bwd_kernel<__nv_bfloat16, {n}[,>]"}
 # The decoders' training rows: 2 microbatches x 2 rows x 4096 tokens, items
 # of the mixed data packed by pack_items, 256 placeholder tokens per media
 # item (InternVL's LLM tokens per image).  Depth cut to 8 layers (one Jamba
@@ -385,16 +395,28 @@ def main() -> int:
     def rnd(*shape, dtype=torch.float32):
         return torch.randn(*shape, generator=gen, device=dev).to(dtype)
 
-    def rwkv_case(B, H, S, M, dtype, final_cot, path=False):
+    def rwkv_case(B, H, S, M, dtype, final_cot, path=False, offset=False):
         """r, k, v, w, u and the cotangents of (y, s_final).  At the path
-        shape w is the model's decay exp(-exp(dec)), dec in [-6, -1]."""
+        shape w is the model's decay exp(-exp(dec)), dec in [-6, -1].  With
+        ``offset`` the direct K6/K7 calls of ``raw_pair`` take r, k, v, dy
+        one element past a 16-byte aligned allocation."""
         r, k, v = (rnd(B, H, S, M, dtype=dtype) for _ in range(3))
         w = (torch.exp(-torch.exp(-6 + 5 * torch.rand(B, H, S, M, generator=gen, device=dev)))
              if path else torch.sigmoid(rnd(B, H, S, M)))
         return dict(kind="rwkv6", ins=(r, k, v, w, rnd(H, M) * 0.1),
                     cots=(rnd(B, H, S, M, dtype=dtype),
                           rnd(B, H, M, M) if final_cot else None),
-                    names=("y", "s_final", "dr", "dk", "dv", "dw", "du"))
+                    names=("y", "s_final", "dr", "dk", "dv", "dw", "du"), offset=offset)
+
+    def off_view(t):
+        """``t``'s values in a contiguous view one element past the start of
+        its allocation (not 16-byte aligned)."""
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        if out.data_ptr() % 16 == 0:
+            raise SystemExit("off_view: the view is 16-byte aligned")
+        return out
 
     def mamba_case(B, S, di, N, dtype, path=False):
         """u, dt, B_t, C_t, A, D as the model makes them at the path shape
@@ -437,6 +459,16 @@ def main() -> int:
                                          torch.bfloat16, path=True),
         "rwkv6_prime_S257_B2_ds/f32": lambda: rwkv_case(2, 3, 257, 64, torch.float32, True),
         "rwkv6_S97_M32_ds/f32": lambda: rwkv_case(1, 2, 97, 32, torch.float32, True),
+        "rwkv6_S1_ds/f32": lambda: rwkv_case(1, 2, 1, 64, torch.float32, True),
+        "rwkv6_S5_B3/f32": lambda: rwkv_case(3, 2, 5, 64, torch.float32, False),
+        f"rwkv6_S{rwkv6_scan.CHUNK + 1}_ds/f32": lambda: rwkv_case(
+            1, 3, rwkv6_scan.CHUNK + 1, 64, torch.float32, True),
+        "rwkv6_S33_B3_M32_ds/f32": lambda: rwkv_case(3, 2, 33, 32, torch.float32, True),
+        "rwkv6_S61_offset_ds/f32": lambda: rwkv_case(2, 2, 61, 64, torch.float32, True,
+                                                     offset=True),
+        "rwkv6_S5_B3/bf16": lambda: rwkv_case(3, 2, 5, 64, torch.bfloat16, False),
+        "rwkv6_S61_offset_ds/bf16": lambda: rwkv_case(2, 2, 61, 64, torch.bfloat16, True,
+                                                      offset=True),
         "mamba_prime_S257_di300/f32": lambda: mamba_case(2, 257, 300, 16, torch.float32),
         "mamba_S97_B3_di130/f32": lambda: mamba_case(3, 97, 130, 16, torch.float32),
         "mamba_S1_di36/f32": lambda: mamba_case(1, 1, 36, 16, torch.float32),
@@ -449,22 +481,35 @@ def main() -> int:
         """The scans' fp32 outputs, kernel vs plain version on the same
         inputs, whatever the case's type (both sides compute in fp32, so
         they are held to fp32's TOL; the autograd outputs above are rounded
-        to the inputs' type).  Mamba: K4's h_init, then K5 on it twice (are
-        the runs bitwise equal?), the plain K5 on it with the sequence
-        zero-padded to a chunk multiple (dt = u = 0: identity steps).
-        RWKV6 (S a chunk multiple): K6's s_final and s_init, K7 on them
-        with no final-state cotangent, as training runs it."""
+        to the inputs' type), and whether the backward kernel run twice on
+        the same inputs gives bitwise equal outputs.  The plain versions take
+        the sequences padded to a chunk multiple with identity steps.
+        Mamba: K4's h_init, then K5 on it twice.  RWKV6: K6's s_final and
+        s_init, then K7 on them twice, with the case's final-state
+        cotangent (zeros, as training runs it, where it has none); with
+        ``offset`` the kernels take r, k, v, dy as unaligned views."""
         if c["kind"] == "rwkv6":
             r, k, v, w, uu = c["ins"]
             B, H, S, M = r.shape
             dy = c["cots"][0]
-            ds = torch.zeros((B, H, M, M), device=dev)
-            _, s_fin, s_init = rwkv6_scan.wkv_fwd(r, k, v, w, uu, rwkv6_scan.CHUNK)
-            _, p_fin, p_init = rwkv6_scan.fwd_plain(r, k, v, w, uu, rwkv6_scan.CHUNK)
-            got = rwkv6_scan.wkv_bwd(r, k, v, w, uu, s_init, dy, ds, rwkv6_scan.CHUNK)
-            ref = rwkv6_scan.bwd_plain(r, k, v, w, uu, s_init, dy, ds, rwkv6_scan.CHUNK)
-            return rel_errors(("s_final", "s_init", "dr", "dk", "dv", "dw", "du"),
-                              (s_fin, s_init, *got), (p_fin, p_init, *ref)), True
+            ds = c["cots"][1] if c["cots"][1] is not None else torch.zeros((B, H, M, M),
+                                                                          device=dev)
+            chunk = min(rwkv6_scan.CHUNK, S)
+            S_p = -(-S // chunk) * chunk
+            pad = lambda t, x=0.0: torch.nn.functional.pad(t, (0, 0, 0, S_p - S), value=x)  # noqa: E731
+            kr, kk, kv, kdy = ((off_view(t) for t in (r, k, v, dy)) if c["offset"]
+                               else (r, k, v, dy))
+            _, s_fin, s_init = rwkv6_scan.wkv_fwd(kr, kk, kv, w, uu, chunk)
+            runs = [rwkv6_scan.wkv_bwd(kr, kk, kv, w, uu, s_init, kdy, ds, chunk)
+                    for _ in range(2)]
+            _, p_fin, p_init = rwkv6_scan.fwd_plain(pad(r), pad(k), pad(v), pad(w, 1.0), uu,
+                                                    chunk)
+            ref = rwkv6_scan.bwd_plain(pad(r), pad(k), pad(v), pad(w, 1.0), uu, s_init,
+                                       pad(dy), ds, chunk)
+            ref = [x[:, :, :S] for x in ref[:4]] + [ref[4]]
+            return (rel_errors(("s_final", "s_init", "dr", "dk", "dv", "dw", "du"),
+                               (s_fin, s_init, *runs[0]), (p_fin, p_init, *ref)),
+                    all(torch.equal(a, b) for a, b in zip(*runs)))
         u, dtt, Bt, Ct, A, D = c["ins"]
         dy = c["cots"][0]
         S = u.shape[1]
@@ -487,14 +532,12 @@ def main() -> int:
         errs = scan_pair(c)
         check_pair(cname, errs, c["ins"][0].dtype)
         fwd, bwd = ("K6", "K7") if c["kind"] == "rwkv6" else ("K4", "K5")
-        if c["kind"] == "mamba" or c["ins"][0].dtype == torch.bfloat16:
-            raw, same = raw_pair(c)
-            check_pair(f"{cname} {fwd}/{bwd} fp32 outputs", raw, torch.float32)
-        if c["kind"] == "mamba":
-            log(f"[compare] {cname}: K5 twice on the same inputs: "
-                f"{'bitwise equal' if same else 'DIFFER'}")
-            if not same:
-                raise SystemExit(f"K5 is not deterministic: {cname}")
+        raw, same = raw_pair(c)
+        check_pair(f"{cname} {fwd}/{bwd} fp32 outputs", raw, torch.float32)
+        log(f"[compare] {cname}: {bwd} twice on the same inputs: "
+            f"{'bitwise equal' if same else 'DIFFER'}")
+        if not same:
+            raise SystemExit(f"{bwd} is not deterministic: {cname}")
         if cname.endswith("/bf16") and cname.split("/")[0] in SCAN_SHAPES:
             shape = cname.split("/")[0]
             n_out = 2 if c["kind"] == "rwkv6" else 1
@@ -670,9 +713,10 @@ def main() -> int:
 
     def profile_step(fn, tag, shapes, step_s, scans=()):
         """Run ``fn`` (one train step) under torch.profiler and print the
-        device time per kernel name for K1-K3 at each of ``shapes`` and for
-        the bf16 scan kernels ``scans`` at ``shapes[0]`` (beside the isolated
-        time, phase 4), the ten kernels with the most device time, and
+        device time per kernel name for K1-K3 at each of ``shapes`` that has
+        attention and for the bf16 scan kernels ``scans`` at ``shapes[0]``
+        (beside the isolated time, phase 4), the ten kernels with the most
+        device time, and
         the device's idle share: over the traced step (whose host side the
         profiler slows) and against ``step_s``, the untraced step's seconds.
         A trace with no device events prints "not measured"."""
@@ -716,7 +760,7 @@ def main() -> int:
             f"{1 - busy / 1e6 / step_s:.3f}; {sum(n for _, n in per_name.values())} "
             f"device events, {len(per_name)} kernel names")
         for kn, frag in TRACE_NAME.items():
-            for shape in shapes:
+            for shape in (sh for sh in shapes if sh in path_shapes):   # attention shapes
                 # the instantiation: tile width, and whether the head dim pads it
                 D = path_shapes[shape]["D"]
                 tile = next(w for w in (64, 128, 256) if D <= w)
@@ -733,8 +777,8 @@ def main() -> int:
                 else:
                     log(f"[profile] {tag} {kn} {shape}: no launch found in the trace")
         for kn in scans:
-            # K4 fwd_kernel<__nv_bfloat16, 16>, K5 bwd_kernel<__nv_bfloat16, 16, VEC>
-            pat = re.compile(rf"\b{'fwd' if kn == 'K4' else 'bwd'}_kernel<__nv_bfloat16, 16[,>]")
+            sh = SCAN_SHAPES[shapes[0]]
+            pat = re.compile(SCAN_TRACE[kn].format(n=sh["N"] if "N" in sh else sh["M"]))
             hits = [(nm, tot, n) for nm, (tot, n) in per_name.items() if pat.search(nm)]
             tot, n = sum(t for _, t, _ in hits), sum(c for _, _, c in hits)
             iso = timing[(kn, shapes[0])]["ms"]
@@ -950,12 +994,13 @@ def main() -> int:
             f"; max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         if profile:
             profile_step(lambda: train_step(params, opt, batches[0], 3e-4), name, (name,),
-                         sum(seconds[1:]) / len(seconds[1:]), scans=("K4", "K5"))
+                         sum(seconds[1:]) / len(seconds[1:]),
+                         scans=("K6", "K7") if name == "rwkv6-7b" else ("K4", "K5"))
         del params, opt, batches, train_step
         torch.cuda.empty_cache()
         return counts
 
-    dec_counts = {**train_decoder("rwkv6-7b", rwkv_cfg, rwkv6_7b.CFG),
+    dec_counts = {**train_decoder("rwkv6-7b", rwkv_cfg, rwkv6_7b.CFG, profile=True),
                   **train_decoder("jamba", jamba_cfg, jamba_v0_1_52b.CFG, profile=True)}
     on_path = [("K6", "rwkv6-7b"), ("K7", "rwkv6-7b"), ("K4", "jamba"), ("K5", "jamba"),
                ("K1", "jamba"), ("K2", "jamba"), ("K3", "jamba")]

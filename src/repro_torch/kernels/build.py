@@ -46,10 +46,6 @@ SIGNATURES = {
 }
 
 
-# Shared memory one block may use on the H100 (dynamic, after opting in).
-SMEM_PER_BLOCK = 232_448
-
-
 class BuildLog:
     """What the builds of this process did: seconds, and the ``-Xptxas -v``
     lines and compiler warnings (e.g. a wgmma pipeline it serialized)."""

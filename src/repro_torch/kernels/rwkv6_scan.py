@@ -23,9 +23,10 @@ same chunked algorithm as sequential torch loops.  The entry point
 ``rwkv6_scan_bhsm`` routes once: the kernels for a CUDA tensor, the plain
 versions for a CPU tensor.
 
-The chunk is internal (no output depends on it): ``CHUNK`` steps, which
-keeps K7's replay history of ``chunk × M × M`` f32 in shared memory.  The plain
-versions take inputs padded to a chunk multiple with the identity values of
+The chunk is internal (no output depends on it): ``CHUNK`` steps.  K6 takes
+any chunk; K7 replays a chunk's states in registers, in sub-chunks of 4
+steps, and takes chunks of 1 to ``K7_CHUNK`` steps.  The plain versions take
+inputs padded to a chunk multiple with the identity values of
 ``kernels/blocking.py``; the CUDA kernels load those values past the end.
 """
 from __future__ import annotations
@@ -37,7 +38,8 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.blocking import RWKV6_PAD_W, pad_axis, pick_block
 
-CHUNK = 8
+CHUNK = 16
+K7_CHUNK = 16        # the longest chunk K7 takes (K7_CH in the .cu)
 
 # Kernel launches since the last reset: kernel ("fwd" K6, "bwd" K7) -> count.
 LAUNCHES: Counter = Counter()
@@ -100,8 +102,8 @@ def bwd_plain(r, k, v, w, u, s_init, dy, ds, chunk):
 # --------------------------------------------------------------------------- #
 # CUDA launches
 # --------------------------------------------------------------------------- #
-def _check(r, k, v, w, u, chunk, extra=()):
-    """Raise on what the CUDA kernels do not take."""
+def _check(r, k, v, w, u, chunk, extra=(), bwd=False):
+    """Raise on what the CUDA kernels do not take (``bwd``: K7, else K6)."""
     B, H, S, M = r.shape
     if M not in (32, 64):
         raise ValueError(f"CUDA WKV6 takes head size 32 or 64, got {M}")
@@ -114,9 +116,9 @@ def _check(r, k, v, w, u, chunk, extra=()):
     if any(t.shape != r.shape for t in (k, v, w)) or u.shape != (H, M):
         raise ValueError(f"shapes r/k/v/w {tuple(r.shape)} and u {tuple(u.shape)} "
                          "must be (B, H, S, M) and (H, M)")
-    smem = 4 * (chunk * M * (M + 4) + 5 * chunk * M + 2 * chunk + M)
-    if chunk < 1 or smem > build.SMEM_PER_BLOCK:
-        raise ValueError(f"chunk {chunk} needs {smem} B of shared memory")
+    if chunk < 1 or (bwd and chunk > K7_CHUNK):
+        raise ValueError(f"chunk {chunk}: K6 takes any of 1 step or more, K7 1 to "
+                         f"{K7_CHUNK} (the replay history it holds in registers)")
     for t in (r, k, v, w, u, *extra):
         if t.device != r.device or not t.is_contiguous():
             raise ValueError("operands must be contiguous on r's CUDA device")
@@ -147,7 +149,7 @@ def wkv_fwd(r, k, v, w, u, chunk):
 def wkv_bwd(r, k, v, w, u, s_init, dy, ds, chunk):
     """K7 → (dr, dk, dv, dw, du partial)."""
     B, H, S, M = r.shape
-    _check(r, k, v, w, u, chunk, (s_init, dy, ds))
+    _check(r, k, v, w, u, chunk, (s_init, dy, ds), bwd=True)
     if dy.shape != r.shape or dy.dtype != r.dtype:
         raise ValueError("dy must match r's shape and dtype")
     if ds.shape != (B, H, M, M) or s_init.shape != (B, H, -(-S // chunk), M, M) \

@@ -144,28 +144,86 @@ def test_cuda_tensor_core_backward_is_deterministic():
             assert torch.equal(a, b)
 
 
+# (B, H, S, M, final-state cotangent, offset) of the RWKV6 scan cases: prime
+# lengths over several chunks, S 1 and 5 (under a chunk), S one past a chunk (a
+# full chunk after a ragged one), B 3, M 32, and r, k, v, dy one element past a
+# 16-byte aligned allocation (K7's plain-load path)
+RWKV_CASES = [(2, 3, 131, 64, True, False), (1, 2, 61, 32, True, False),
+              (2, 2, 40, 64, False, False), (1, 2, 1, 64, True, False),
+              (3, 2, 5, 64, False, False), (1, 3, rwkv6_scan.CHUNK + 1, 64, True, False),
+              (3, 2, 33, 32, True, False), (2, 2, 37, 64, True, True)]
+
+
+def _rwkv_inputs(gen, dt, B, H, S, M):
+    """r, k, v (in ``dt``), w, u (fp32) on the card."""
+    rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda")  # noqa: E731
+    return [rnd(B, H, S, M).to(dt), rnd(B, H, S, M).to(dt), rnd(B, H, S, M).to(dt),
+            torch.sigmoid(rnd(B, H, S, M)), rnd(H, M) * 0.1]
+
+
+def _offset_leaf(t):
+    """A leaf that holds ``t``'s values one element past the start of its
+    allocation, and the contiguous view of them a kernel is given (not 16-byte
+    aligned)."""
+    buf = torch.zeros(t.numel() + 1, dtype=t.dtype, device=t.device)
+    with torch.no_grad():
+        buf[1:] = t.flatten()
+    buf.requires_grad_(True)
+    view = buf[1:].view(t.shape)
+    assert view.data_ptr() % 16
+    return buf, view
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_rwkv6_scan_matches_plain(dtype):
     """K6 forward and K7 gradients, with and without a final-state
-    cotangent; prime lengths span several chunks."""
+    cotangent, in the cases of ``RWKV_CASES``."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     dt = getattr(torch, dtype)
     gen = torch.Generator(device="cuda").manual_seed(1)
-    for (B, H, S, M, final_cot) in [(2, 3, 131, 64, True), (1, 2, 61, 32, True),
-                                    (2, 2, 40, 64, False)]:
+    for (B, H, S, M, final_cot, offset) in RWKV_CASES:
         rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda")  # noqa: E731
-        ins = [rnd(B, H, S, M).to(dt), rnd(B, H, S, M).to(dt), rnd(B, H, S, M).to(dt),
-               torch.sigmoid(rnd(B, H, S, M)), rnd(H, M) * 0.1]
+        ins = _rwkv_inputs(gen, dt, B, H, S, M)
         cy, cs = rnd(B, H, S, M), rnd(B, H, M, M) if final_cot else None
         outs = []
         for plain in (False, True):
-            ts = [t.clone().requires_grad_(True) for t in ins]
-            y, s = rwkv6_scan.rwkv6_scan_bhsm(*ts, plain=plain)
+            leaves = [t.clone().requires_grad_(True) for t in ins]
+            args = list(leaves)
+            if offset and not plain:
+                for i in range(3):
+                    leaves[i], args[i] = _offset_leaf(ins[i])
+            y, s = rwkv6_scan.rwkv6_scan_bhsm(*args, plain=plain)
             loss = (y.float() * cy).sum() + ((s * cs).sum() if final_cot else 0)
-            outs.append([y, s, *torch.autograd.grad(loss, ts)])
+            grads = list(torch.autograd.grad(loss, leaves))
+            if offset and not plain:
+                grads[:3] = [g[1:].view(t.shape) for g, t in zip(grads[:3], ins)]
+            outs.append([y, s, *grads])
         _assert_close(outs, dt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_rwkv6_backward_is_deterministic(dtype):
+    """K7 run twice on the same inputs gives bitwise equal dr, dk, dv, dw and
+    du partials: no atomics, every sum in a fixed order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for (B, H, S, M, final_cot, offset) in RWKV_CASES:
+        r, k, v, w, u = _rwkv_inputs(gen, dt, B, H, S, M)
+        dy = torch.randn(B, H, S, M, generator=gen, device="cuda").to(dt)
+        ds = (torch.randn(B, H, M, M, generator=gen, device="cuda") if final_cot
+              else torch.zeros(B, H, M, M, device="cuda"))
+        if offset:
+            r, k, v, dy = (_offset_leaf(t)[1].detach() for t in (r, k, v, dy))
+        chunk = min(rwkv6_scan.CHUNK, S)
+        _, _, s_init = rwkv6_scan.wkv_fwd(r, k, v, w, u, chunk)
+        runs = [rwkv6_scan.wkv_bwd(r, k, v, w, u, s_init, dy, ds, chunk) for _ in range(2)]
+        for a, b in zip(*runs):
+            assert torch.equal(a, b)
 
 
 # (B, S, di) of the Mamba scan cases

@@ -119,7 +119,7 @@ def test_rwkv6_plain_grads_match_pallas_and_oracle(B, S, H, M, chunk, final_stat
 def test_rwkv6_outputs_do_not_depend_on_chunk(S):
     ins = [_t(x, grad=True) for x in _rwkv_inputs(5, 2, S, 2, 16)]
     outs = []
-    for chunk in (1, 8, 64):
+    for chunk in (1, 8, rwkv6_scan.CHUNK, 64):
         ts = [t.detach().clone().requires_grad_(True) for t in ins]
         y, s = rwkv6_scan.rwkv6_scan_bhsm(*ts, chunk=chunk)
         (y.sin().sum() + s.cos().sum()).backward()
@@ -246,8 +246,14 @@ def test_cuda_checks_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="head size"):
         rwkv6_scan._check(r[..., :16], r[..., :16], r[..., :16], w32[..., :16],
                           u32[:, :16], rwkv6_scan.CHUNK)
-    with pytest.raises(ValueError, match="shared memory"):
-        rwkv6_scan._check(r, r, r, w32, u32, 64)
+    # K7 holds a chunk's history in registers, a sub-chunk at a time: 16 steps at
+    # most; K6 takes any chunk
+    rwkv6_scan._check(r, r, r, w32, u32, 64)
+    rwkv6_scan._check(r, r, r, w32, u32, rwkv6_scan.K7_CHUNK, bwd=True)
+    with pytest.raises(ValueError, match="history"):
+        rwkv6_scan._check(r, r, r, w32, u32, rwkv6_scan.K7_CHUNK + 1, bwd=True)
+    with pytest.raises(ValueError, match="chunk 0"):
+        rwkv6_scan._check(r, r, r, w32, u32, 0)
     u = torch.zeros(1, 8, 32, dtype=torch.bfloat16)
     bc = torch.zeros(1, 8, 16, dtype=torch.bfloat16)
     A, D = torch.zeros(32, 16), torch.zeros(32)

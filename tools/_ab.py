@@ -1,6 +1,7 @@
-"""What the kernel A/B tools (``pfa_ab.py``, ``mamba_ab.py``) share: a
-second build of a library's source beside this tree's, CUDA-event times of
-both in turns, and the card's name and power limit.  Needs a CUDA card."""
+"""What the kernel A/B tools (``pfa_ab.py``, ``mamba_ab.py``,
+``rwkv6_ab.py``) share: a second build of a library's source beside this
+tree's, CUDA-event times of both in turns, and the card's name and power
+limit.  Needs a CUDA card."""
 from __future__ import annotations
 
 import os
