@@ -26,8 +26,8 @@ Phases, each reported on its own lines:
                 K4/K5 di 36, not a multiple of K5's 8 channels a warp); the
                 scans' fp32 outputs (K4's h_init, K5's gradients and partials,
                 K6's states, K7's gradients, on every scan case) against the
-                plain versions' at fp32's tolerance, in bf16 too; K5 and K7 run
-                twice on each scan case must give bitwise equal gradients;
+                plain versions' at fp32's tolerance, in bf16 too; K6, K5 and K7
+                run twice on each scan case must give bitwise equal outputs;
   4. timing   — every kernel at its path shapes with CUDA events, beside its
                 plain version, the card's bound and the PyTorch yardstick
                 where one exists (SDPA for K1–K3; none computes a scan);
@@ -97,11 +97,11 @@ SCAN_NAME = {"K4": "mamba_fwd", "K5": "mamba_bwd", "K6": "wkv6_fwd",
              "K7": "wkv6_bwd"}
 # The bf16 scan kernels in a profiler trace, by name and leading template
 # arguments: K4 fwd_kernel<T, N> and K5 bwd_kernel<T, N, VEC> (mamba_scan.cu,
-# N the state width), K6 fwd_kernel<T, M> and K7 wkv6_bwd_kernel<T, M, VEC>
-# (rwkv6_scan.cu, M the head size); {n} is N or M.
+# N the state width), K6 wkv6_fwd_kernel<T, M, VEC> and K7
+# wkv6_bwd_kernel<T, M, VEC> (rwkv6_scan.cu, M the head size); {n} is N or M.
 SCAN_TRACE = {"K4": r"\bfwd_kernel<__nv_bfloat16, {n}>",
               "K5": r"\bbwd_kernel<__nv_bfloat16, {n}[,>]",
-              "K6": r"\bfwd_kernel<__nv_bfloat16, {n}>",
+              "K6": r"\bwkv6_fwd_kernel<__nv_bfloat16, {n}[,>]",
               "K7": r"\bwkv6_bwd_kernel<__nv_bfloat16, {n}[,>]"}
 # The decoders' training rows: 2 microbatches x 2 rows x 4096 tokens, items
 # of the mixed data packed by pack_items, 256 placeholder tokens per media
@@ -481,13 +481,14 @@ def main() -> int:
         """The scans' fp32 outputs, kernel vs plain version on the same
         inputs, whatever the case's type (both sides compute in fp32, so
         they are held to fp32's TOL; the autograd outputs above are rounded
-        to the inputs' type), and whether the backward kernel run twice on
-        the same inputs gives bitwise equal outputs.  The plain versions take
-        the sequences padded to a chunk multiple with identity steps.
-        Mamba: K4's h_init, then K5 on it twice.  RWKV6: K6's s_final and
-        s_init, then K7 on them twice, with the case's final-state
-        cotangent (zeros, as training runs it, where it has none); with
-        ``offset`` the kernels take r, k, v, dy as unaligned views."""
+        to the inputs' type), and the kernels that must give bitwise equal
+        outputs when run twice on the same inputs, each with whether they
+        did.  The plain versions take the sequences padded to a chunk
+        multiple with identity steps.  Mamba: K4's h_init, then K5 on it
+        twice.  RWKV6: K6 twice (y, s_final, s_init), then K7 twice on its
+        states, with the case's final-state cotangent (zeros, as training
+        runs it, where it has none); with ``offset`` the kernels take r, k,
+        v, dy as unaligned views."""
         if c["kind"] == "rwkv6":
             r, k, v, w, uu = c["ins"]
             B, H, S, M = r.shape
@@ -499,7 +500,8 @@ def main() -> int:
             pad = lambda t, x=0.0: torch.nn.functional.pad(t, (0, 0, 0, S_p - S), value=x)  # noqa: E731
             kr, kk, kv, kdy = ((off_view(t) for t in (r, k, v, dy)) if c["offset"]
                                else (r, k, v, dy))
-            _, s_fin, s_init = rwkv6_scan.wkv_fwd(kr, kk, kv, w, uu, chunk)
+            fwd_runs = [rwkv6_scan.wkv_fwd(kr, kk, kv, w, uu, chunk) for _ in range(2)]
+            _, s_fin, s_init = fwd_runs[0]
             runs = [rwkv6_scan.wkv_bwd(kr, kk, kv, w, uu, s_init, kdy, ds, chunk)
                     for _ in range(2)]
             _, p_fin, p_init = rwkv6_scan.fwd_plain(pad(r), pad(k), pad(v), pad(w, 1.0), uu,
@@ -509,7 +511,8 @@ def main() -> int:
             ref = [x[:, :, :S] for x in ref[:4]] + [ref[4]]
             return (rel_errors(("s_final", "s_init", "dr", "dk", "dv", "dw", "du"),
                                (s_fin, s_init, *runs[0]), (p_fin, p_init, *ref)),
-                    all(torch.equal(a, b) for a, b in zip(*runs)))
+                    {"K6": all(torch.equal(a, b) for a, b in zip(*fwd_runs)),
+                     "K7": all(torch.equal(a, b) for a, b in zip(*runs))})
         u, dtt, Bt, Ct, A, D = c["ins"]
         dy = c["cots"][0]
         S = u.shape[1]
@@ -525,7 +528,7 @@ def main() -> int:
         ref = [x[:, :S] for x in ref[:2]] + [x[:, :, :S] for x in ref[2:4]] + list(ref[4:])
         return (rel_errors(("h_init", "du", "ddt", "dB", "dC", "dA", "dD"),
                            (h_init, *runs[0]), (p_init, *ref)),
-                all(torch.equal(a, b) for a, b in zip(*runs)))
+                {"K5": all(torch.equal(a, b) for a, b in zip(*runs))})
 
     for cname, make in scan_cases.items():
         c = make()
@@ -534,10 +537,11 @@ def main() -> int:
         fwd, bwd = ("K6", "K7") if c["kind"] == "rwkv6" else ("K4", "K5")
         raw, same = raw_pair(c)
         check_pair(f"{cname} {fwd}/{bwd} fp32 outputs", raw, torch.float32)
-        log(f"[compare] {cname}: {bwd} twice on the same inputs: "
-            f"{'bitwise equal' if same else 'DIFFER'}")
-        if not same:
-            raise SystemExit(f"{bwd} is not deterministic: {cname}")
+        for kn, eq in same.items():
+            log(f"[compare] {cname}: {kn} twice on the same inputs: "
+                f"{'bitwise equal' if eq else 'DIFFER'}")
+            if not eq:
+                raise SystemExit(f"{kn} is not deterministic: {cname}")
         if cname.endswith("/bf16") and cname.split("/")[0] in SCAN_SHAPES:
             shape = cname.split("/")[0]
             n_out = 2 if c["kind"] == "rwkv6" else 1

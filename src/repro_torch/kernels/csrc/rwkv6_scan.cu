@@ -1,7 +1,7 @@
 // RWKV-6 WKV recurrence for Hopper (sm_90a): forward (K6) and backward (K7).
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/rwkv6_scan.py:
-//   K6 fwd_kernel <- _fwd_kernel  (S_t = diag(w_t) S_{t-1} + k_t v_t^T,
+//   K6 wkv6_fwd_kernel <- _fwd_kernel  (S_t = diag(w_t) S_{t-1} + k_t v_t^T,
 //                                  y_t = r_t (S_{t-1} + diag(u) k_t v_t^T); emits y, the
 //                                  final state and the chunk-initial states)
 //   K7 wkv6_bwd_kernel <- _bwd_kernel  (reversed-chunk replay from the chunk-initial
@@ -19,9 +19,27 @@
 // (b, h).  Both the state and its adjoint have rows that evolve independently
 // (row i is scaled by w_t[i] and gets k_t[i] v_t or r_t[i] dy_t added) and columns that
 // evolve independently, which decides the thread layout:
-//   K6: 4 threads per value column j, each holding 16 (M = 64) of its rows in registers;
-//       y_t[j] is a 4-lane shuffle sum.  r, k, v, w come through shared memory 64 steps
-//       at a time, and the state is saved to the chunk-initial states every `chunk` steps.
+//   K6 (wkv6_fwd_kernel): warp specialised.  The compute warps hold the state in
+//       registers, thread (rg, cg) R consecutive rows (R rg + x) by C consecutive
+//       columns (C cg + c): at M = 64, 4 x 4, 256 threads of 16 elements.  A step's r, k,
+//       w of its rows and v of its columns are one 16-byte shared-memory load each.  y_t[j]
+//       is a sum over rows: the sums of HS = 8 steps are taken together by a transposing
+//       reduce over the G = M / R lanes of a column group (G - 1 shuffles a value) that
+//       leaves each lane its (step, column) sums.
+//       - Copies ahead: four producer warps (one a scheduler) bring each tile of 64 steps
+//         (32 in fp32) of r, k, v (in T) and w into a stage by four TMA bulk copies onto
+//         an mbarrier (inputs not 16-byte aligned: plain loads), convert it into one of
+//         two fp32 tile buffers with each step's r.u.k (the u-term, which the lane that
+//         holds a sum adds), and start the next copy.  Buffers change hands by mbarriers
+//         (full: producers to compute warps; empty: back), so no warp waits at a
+//         block-wide barrier and the conversion overlaps the steps.
+//       - y goes through the buffer's y tile and out as whole rows in 16-byte stores, by
+//         the producers two tiles later.  A chunk's initial state is written from
+//         registers in 16-byte stores at the step a countdown names (no division in the
+//         step loop); with a chunk that is a multiple of HS steps only the first step of
+//         each group is checked (checking every step is 1.04 times slower on an H100).
+//       - Each state element is updated as fmaf(w_i, S_ij, k_i v_j), so the states are
+//         bitwise those of the sequential recurrence in that form.
 //   K7 (wkv6_bwd_kernel): one block per (b, h) walks the chunks from last to first with
 //       the adjoint held twice.  The row group (4 M threads) holds G by rows, 2 rows x
 //       M/8 columns a thread, so dw, dk, dr and du of a row are sums over 8 neighbouring
@@ -47,13 +65,15 @@
 //         i / 2 of a row, or one step's columns) in G - 1 shuffles a value.
 //       - The role branch is warp-uniform to the compiler (read through a lane-0
 //         shuffle), so the shuffles inside it need no code for a diverged warp.
-// Bound on the H100.  Per step and (b, h) the forward does ~3 M^2 fp32 operations on
-// O(M) bytes of input, far above the ridge point, so it is bound by operations, on the
-// CUDA cores (67 TFLOP/s fp32: the recurrence has no matrix product for the tensor
-// cores in this form).  With one block per (b, h) the grid is B*H blocks (128 at
-// RWKV6-7B's B = 2, H = 64), one per SM, so this first version uses a fraction of the
-// card's warp schedulers; the chunked (matrix) form of the recurrence on the tensor cores
-// is the next step.
+// K6's bound on the H100: 5 fp32 operations per state element and step
+// (bench.rwkv6_fwd_ops) on O(M) bytes of input, so the function is bound by operations
+// on the CUDA cores (67 TFLOP/s fp32: the recurrence has no matrix product for the
+// tensor cores in this form), 0.16 ms at RWKV6-7B's shape.  The chunk-initial states it
+// also writes for K7 (16 KiB a chunk and (b, h), 537 MB at chunk 16) put a floor of
+// 0.28 ms on the bytes it moves.  Its compute warps issue ~4.5 instructions per state
+// element and step (3 FP, the loads, the sums), 8 warps an SM beside 4 producers, and it
+// takes ~0.46 ms there (tools/rwkv6_ab.py): the y sums' shuffles, the per-step loads and
+// the state stores each cost 12-20 % of that, none alone bounds it.
 // K7's bound: 11 fp32 operations per state element and step (bench.rwkv6_bwd_ops), 0.35 ms
 // at RWKV6-7B's shape.  It issues ~16 instructions per element and step (the replay 1.5
 // times over, G updated in both groups, the transposing sums) from 12 warps an SM, the 8
@@ -66,36 +86,11 @@
 
 namespace {
 
-constexpr int Q = 4;                 // threads per state row / column
-constexpr int TS = 64;               // K6: steps per shared-memory tile
+constexpr int Q = 4;                 // K7: threads per state row / column
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// Sum over the Q = 4 neighbouring lanes that share a row or column.
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(FULL, x, 1);
-  x += __shfl_xor_sync(FULL, x, 2);
-  return x;
-}
-
-// Steps [t0, t0 + chunk) of a (S, M) sequence into a (chunk, M) fp32 tile; steps past
-// S hold `pad`.
-template <typename T>
-__device__ __forceinline__ void load_steps(float* dst, const T* src, int t0, int chunk,
-                                           int S, int M, float pad) {
-  for (int idx = threadIdx.x; idx < chunk * M; idx += blockDim.x) {
-    const int t = t0 + idx / M;
-    dst[idx] = t < S ? to_f(src[(size_t)t * M + idx % M]) : pad;
-  }
-}
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -103,14 +98,18 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// K7's copies: TMA bulk copies from global to shared memory that report to an mbarrier
-// in shared memory (one arrival, by the thread that issues them, with the bytes to expect).
+// TMA bulk copies from global to shared memory that report to an mbarrier in shared
+// memory (one arrival, by the thread that issues them, with the bytes to expect).
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
 }
-__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(smem_addr(bar)) : "memory");
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, unsigned count = 1) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_addr(bar)), "r"(count)
+               : "memory");
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_addr(bar)) : "memory");
 }
 __device__ __forceinline__ void mbar_expect(unsigned long long* bar, unsigned bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
@@ -138,93 +137,387 @@ __device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned pari
     if (n == (1u << 22)) __trap();
 }
 
-// ruk[t] = sum_i r_t[i] u[i] k_t[i] (and, with v/dy, vdy[t] = sum_j v_t[j] dy_t[j]) for
-// the first n steps of the tiles, one warp per step.
-__device__ __forceinline__ void step_dots(float* ruk, float* vdy, const float* r_s,
-                                          const float* k_s, const float* u_s,
-                                          const float* v_s, const float* dy_s, int n, int M) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, n_warps = blockDim.x / 32;
-  for (int t = warp; t < n; t += n_warps) {
-    float a = 0.f, b = 0.f;
-    for (int i = lane; i < M; i += 32) {
-      a = fmaf(r_s[t * M + i] * u_s[i], k_s[t * M + i], a);
-      if (vdy) b = fmaf(v_s[t * M + i], dy_s[t * M + i], b);
+// One level of group_transpose_sum: lanes gi and gi ^ HALF exchange halves of their first
+// 2 HALF items, each keeping the half its bit HALF selects, then the next level.  HALF is a
+// template argument so that every loop has a constant trip count and v stays in registers.
+template <int HALF, int G, int C, int STRIDE>
+__device__ __forceinline__ void transpose_level(float (&v)[G][C], int gi) {
+  if constexpr (HALF >= 1) {
+    const bool up = gi & HALF;
+#pragma unroll
+    for (int s = 0; s < HALF; ++s)
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const float send = up ? v[s][c] : v[s + HALF][c];
+        const float keep = up ? v[s + HALF][c] : v[s][c];
+        v[s][c] = keep + __shfl_xor_sync(FULL, send, HALF * STRIDE);
+      }
+    transpose_level<HALF / 2, G, C, STRIDE>(v, gi);
+  }
+}
+
+// v[s][c] is this lane's part of value c of item s.  On return v[0][c] is the sum, over
+// the G lanes of its group (lanes STRIDE apart; this lane is the group's gi-th), of
+// value c of item gi: lane gi holds item gi's sums, after G - 1 shuffles a value
+// (log2 G a value and item with a sum on every lane).
+template <int G, int C, int STRIDE = 1>
+__device__ __forceinline__ void group_transpose_sum(float (&v)[G][C], int gi) {
+  static_assert(G >= 2 && G <= 16 && (G & (G - 1)) == 0, "a power of two lanes, at most 16");
+  static_assert(G * STRIDE <= 32, "the group within a warp");
+  transpose_level<G / 2, G, C, STRIDE>(v, gi);
+}
+
+// N consecutive floats of shared memory (N = 2, or a multiple of 4 16-byte aligned).
+template <int N>
+__device__ __forceinline__ void lds(const float* p, float (&o)[N]) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i) {
+      const float4 f = *reinterpret_cast<const float4*>(p + 4 * i);
+      o[4 * i] = f.x; o[4 * i + 1] = f.y; o[4 * i + 2] = f.z; o[4 * i + 3] = f.w;
     }
-    a = warp_sum(a);
-    if (vdy) b = warp_sum(b);
-    if (lane == 0) {
-      ruk[t] = a;
-      if (vdy) vdy[t] = b;
+  } else {
+    static_assert(N == 2, "2 floats, or a multiple of 4");
+    const float2 f = *reinterpret_cast<const float2*>(p);
+    o[0] = f.x; o[1] = f.y;
+  }
+}
+
+constexpr int K6_NP = 128;           // K6's producer threads: a warp a scheduler
+
+// K6 geometry.  Compute thread (rg, cg) owns rows R rg + x (x < R) and columns
+// C cg + c (c < C) of its (b, h) pair's state; lane = rg (32 / G) + cg % (32 / G), so the
+// G lanes of a column group are 32 / G apart (a quarter-warp's row loads read few
+// addresses, each for several lanes: on an H100, 1.34 times faster than 8 distinct
+// addresses a quarter-warp).  Each choice was timed on an H100 at RWKV6-7B's shape
+// against the others (PERF.md, section 6): 4 x 4 a thread at M = 64 (8 x 2 1.04, 8 x 4 1.05
+// times slower), 4 x 2 at M = 32; the sums of HS = 2 G / C steps at once (G / C: 1.11,
+// 4 G / C: 1.03 times slower); tiles of 64 steps in bf16 (32: 1.07 times slower), 32 in
+// fp32 for shared memory; 4 producer warps (2: 1.18 times slower).
+template <typename T, int M>
+struct K6 {
+  static constexpr int R = 4;                     // rows a thread
+  static constexpr int C = M == 64 ? 4 : 2;       // columns a thread
+  static constexpr int G = M / R;                 // lanes that share a column group
+  static constexpr int HX = 2;                    // values an item
+  static constexpr int HS = G / C * HX;           // steps summed at once: G (step, column) items
+  static constexpr int CPW = 32 / G;              // column groups a warp
+  static constexpr int NC = G * (M / C);          // compute threads
+  static constexpr int NP = K6_NP;                // producer threads
+  static constexpr int NT = NC + NP;
+  static constexpr int TS = sizeof(T) == 2 ? 64 : 32;   // steps a tile
+  static constexpr int YS = M + 8;                // row stride of the y tile (no bank conflict)
+  // the stage, one tile as copied: w (TS, M) in fp32, then r, k, v (TS, M) in T
+  static constexpr size_t STAGE = sizeof(float) * TS * M + sizeof(T) * 3 * TS * M;
+  // a tile buffer: r, k, v, w (TS, M) and y (TS, YS) in fp32; ruk (TS)
+  static constexpr size_t TILE = sizeof(float) * (4 * TS * M + TS * YS + TS);
+  // the stage, two tile buffers, u (M), mbarriers: the stage's copy, buffers full, empty
+  static constexpr size_t BYTES = STAGE + 2 * TILE + sizeof(float) * M + 5 * 8;
+  static_assert(G >= 2 && G <= 16 && TS % HS == 0 && NC % 32 == 0, "geometry");
+  static_assert(STAGE % 16 == 0 && TILE % 16 == 0 && (M * sizeof(T)) % 16 == 0, "aligned");
+  static_assert(BYTES <= 232448, "a block's shared memory");
+};
+
+// The producer warps' own barrier (named barrier 1).
+__device__ __forceinline__ void k6_sync_producers() {
+  asm volatile("bar.sync 1, %0;\n" :: "r"(K6_NP) : "memory");
+}
+
+// Copy steps [t0, t0 + steps) of this (b, h) (sequence offset `off`) into the stage;
+// rows past `steps` are not touched (k6_convert pads them), so no copy reads past S.
+// VEC: four TMA bulk copies, issued by producer 0, that complete the current phase of
+// `bar` (every pointer 16-byte aligned); else plain loads and stores by every producer.
+template <typename T, int M, bool VEC>
+__device__ __forceinline__ void k6_fill(unsigned char* stage, const T* r, const T* k,
+                                        const T* v, const float* w, size_t off, int steps,
+                                        unsigned long long* bar, int pt) {
+  using L = K6<T, M>;
+  float* w_s = reinterpret_cast<float*>(stage);
+  T* seq_s = reinterpret_cast<T*>(w_s + L::TS * M);
+  const T* src[3] = {r + off, k + off, v + off};
+  if constexpr (VEC) {
+    if (pt == 0) {
+      const unsigned seq_bytes = sizeof(T) * steps * M, w_bytes = sizeof(float) * steps * M;
+      mbar_expect(bar, w_bytes + 3 * seq_bytes);
+      bulk_copy(w_s, w + off, w_bytes, bar);
+#pragma unroll
+      for (int s = 0; s < 3; ++s) bulk_copy(seq_s + s * L::TS * M, src[s], seq_bytes, bar);
+    }
+  } else {
+#pragma unroll 1
+    for (int i = pt; i < steps * M; i += L::NP) {
+      w_s[i] = w[off + i];
+#pragma unroll
+      for (int s = 0; s < 3; ++s) seq_s[s * L::TS * M + i] = src[s][i];
     }
   }
 }
 
-// K6.  One block per (b, h), 4*M threads: thread (j, q) owns S[q + 4e][j], e < M/4.
-// The steps come through shared memory TS at a time; the state is saved before every
-// step that starts a chunk.
+// N = 1 or 2 consecutive values of memory (2: 2 N-byte aligned) in fp32.
+template <int N>
+__device__ __forceinline__ void ld_f(const float* p, float (&o)[N]) {
+  if constexpr (N == 2) {
+    const float2 f = *reinterpret_cast<const float2*>(p);
+    o[0] = f.x; o[1] = f.y;
+  } else {
+    o[0] = *p;
+  }
+}
+template <int N>
+__device__ __forceinline__ void ld_f(const __nv_bfloat16* p, float (&o)[N]) {
+  if constexpr (N == 2) {
+    const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(p);
+    o[0] = __low2float(b); o[1] = __high2float(b);
+  } else {
+    o[0] = __bfloat162float(*p);
+  }
+}
+
+// C = 1, 2 or 4 consecutive floats into memory (aligned to 4 C bytes).
+template <int C>
+__device__ __forceinline__ void st_row(float* p, const float (&x)[C]) {
+  if constexpr (C == 4) *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+  else if constexpr (C == 2) *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
+  else *p = x[0];
+}
+
+// The stage's rows into a tile buffer's fp32 r, k, v, w, producer warp pw taking steps
+// pw + 4 n; rows past `steps` get the identity step (w = 1, r = k = v = 0).  Also
+// ruk[t] = sum_i r_t[i] u[i] k_t[i], the sums of KG steps at a time.
 template <typename T, int M>
-__global__ void __launch_bounds__(Q * M) fwd_kernel(const T* __restrict__ r,
-                                                    const T* __restrict__ k,
-                                                    const T* __restrict__ v,
-                                                    const float* __restrict__ w,
-                                                    const float* __restrict__ u,
-                                                    T* __restrict__ y, float* __restrict__ s_final,
-                                                    float* __restrict__ s_init, int H, int S,
-                                                    int chunk, int n_chunks) {
-  constexpr int E = M / Q;
-  extern __shared__ float smem[];
-  float* r_s = smem;                     // (TS, M) each
-  float* k_s = r_s + TS * M;
-  float* v_s = k_s + TS * M;
-  float* w_s = v_s + TS * M;
-  float* ruk = w_s + TS * M;             // (TS)
-  float* u_s = ruk + TS;                 // (M)
-
-  const int bh = blockIdx.x, h = bh % H;
-  const int j = threadIdx.x / Q, q = threadIdx.x % Q;
-  const size_t seq = (size_t)bh * S * M;
-  if (threadIdx.x < M) u_s[threadIdx.x] = u[h * M + threadIdx.x];
-
-  float st[E];
+__device__ __forceinline__ void k6_convert(const unsigned char* stage, float* tile,
+                                           const float* u_s, int steps, int pt) {
+  using L = K6<T, M>;
+  constexpr int TS = L::TS, NW = L::NP / 32;
+  constexpr int E = M / 32;              // consecutive elements a lane (1 or 2)
+  constexpr int N = TS / NW;             // steps a warp
+  constexpr int KG = N < 8 ? N : 8;      // steps whose sums are taken together
+  static_assert(TS % NW == 0 && (E == 1 || E == 2) && N % KG == 0 && KG >= 2 &&
+                (KG & (KG - 1)) == 0, "whole groups of a power of two steps a warp");
+  const float* w_raw = reinterpret_cast<const float*>(stage);
+  const T* raw = reinterpret_cast<const T*>(w_raw + TS * M);     // r, k, v
+  float* ruk = tile + 4 * TS * M + TS * L::YS;
+  const int pw = pt / 32, lane = pt % 32;
+  float uu[E];
 #pragma unroll
-  for (int e = 0; e < E; ++e) st[e] = 0.f;
-
-  for (int t0 = 0; t0 < S; t0 += TS) {
-    const int steps = min(TS, S - t0);
-    __syncthreads();                     // the previous tiles are consumed
-    load_steps(r_s, r + seq, t0, steps, S, M, 0.f);
-    load_steps(k_s, k + seq, t0, steps, S, M, 0.f);
-    load_steps(v_s, v + seq, t0, steps, S, M, 0.f);
-    load_steps(w_s, w + seq, t0, steps, S, M, 1.f);
-    __syncthreads();
-    step_dots(ruk, nullptr, r_s, k_s, u_s, nullptr, nullptr, steps, M);
-    __syncthreads();
-    for (int t = 0; t < steps; ++t) {
-      const int tt = t0 + t;
-      if (tt % chunk == 0) {             // this chunk's initial state
-        float* si = s_init + ((size_t)bh * n_chunks + tt / chunk) * M * M;
+  for (int e = 0; e < E; ++e) uu[e] = u_s[E * lane + e];
+#pragma unroll 1
+  for (int g = 0; g < N / KG; ++g) {
+    float a[KG][1];                      // this lane's part of each step's r.u.k
 #pragma unroll
-        for (int e = 0; e < E; ++e) si[(q + Q * e) * M + j] = st[e];
-      }
-      const float vj = v_s[t * M + j];
-      const float* rt = r_s + t * M;
-      const float* kt = k_s + t * M;
-      const float* wt = w_s + t * M;
-      float acc = 0.f;
+    for (int n = 0; n < KG; ++n) {       // unrolled: the steps' loads and sums overlap
+      const int t = pw + NW * (KG * g + n), idx = t * M + E * lane;
+      const bool live = t < steps;
+      float x[4][E];                     // r, k, v, w
 #pragma unroll
-      for (int e = 0; e < E; ++e) acc = fmaf(rt[q + Q * e], st[e], acc);
-      acc = quad_sum(acc);
-      if (q == 0) y[seq + (size_t)tt * M + j] = from_f<T>(fmaf(vj, ruk[t], acc));
+      for (int s = 0; s < 3; ++s) ld_f<E>(raw + s * TS * M + idx, x[s]);
+      ld_f<E>(w_raw + idx, x[3]);
+      a[n][0] = 0.f;
 #pragma unroll
       for (int e = 0; e < E; ++e) {
-        const int i = q + Q * e;
-        st[e] = fmaf(wt[i], st[e], kt[i] * vj);
+#pragma unroll
+        for (int s = 0; s < 4; ++s) x[s][e] = live ? x[s][e] : (s == 3 ? 1.f : 0.f);
+        a[n][0] = fmaf(x[0][e] * uu[e], x[1][e], a[n][0]);
       }
+#pragma unroll
+      for (int s = 0; s < 4; ++s) st_row<E>(tile + s * TS * M + idx, x[s]);
     }
+    // over groups of KG lanes (lane % KG holds step lane % KG), then over the groups
+    group_transpose_sum<KG, 1>(a, lane % KG);
+#pragma unroll
+    for (int m = KG; m < 32; m *= 2) a[0][0] += __shfl_xor_sync(FULL, a[0][0], m);
+    if (lane < KG) ruk[pw + NW * (KG * g + lane)] = a[0][0];
+  }
+}
+
+// Rows [0, steps) of a y tile (fp32, row stride YS) into y in T, 16 bytes a store, by
+// the producers.
+template <typename T, int M>
+__device__ __forceinline__ void k6_write_y(T* y, const float* y_s, int steps, int pt) {
+  using L = K6<T, M>;
+  constexpr int V = 16 / sizeof(T), PER_ROW = M / V;          // elements a store
+#pragma unroll 1
+  for (int idx = pt; idx < steps * PER_ROW; idx += L::NP) {
+    const int t = idx / PER_ROW, i = idx % PER_ROW * V;
+    const float* src = y_s + t * L::YS + i;
+    if constexpr (sizeof(T) == 2) {
+      const float4 a = *reinterpret_cast<const float4*>(src);
+      const float4 b = *reinterpret_cast<const float4*>(src + 4);
+      __nv_bfloat162 o[4] = {__floats2bfloat162_rn(a.x, a.y), __floats2bfloat162_rn(a.z, a.w),
+                             __floats2bfloat162_rn(b.x, b.y), __floats2bfloat162_rn(b.z, b.w)};
+      *reinterpret_cast<uint4*>(y + (size_t)t * M + i) = *reinterpret_cast<const uint4*>(o);
+    } else {
+      *reinterpret_cast<float4*>(y + (size_t)t * M + i) = *reinterpret_cast<const float4*>(src);
+    }
+  }
+}
+
+// HS steps of K6 from tile row tb (global step tt) on, compute thread (rg, cg): each
+// step's partial sums of y over the thread's rows, then the state update; then the HS
+// steps' sums over the G lanes of the column group, and lane rg writes its items (step
+// tb + H0 h + rg / C, column C cg + rg % C) into the y tile.  The state is saved to `si`
+// before the step `next_si` names (-1 once no chunk of the S steps is left: the identity
+// steps past S in the last group start none); with EACH a chunk may start at any of the
+// HS steps, else only at the first.
+template <typename T, int M, bool EACH>
+__device__ __forceinline__ void k6_steps(float (&st)[K6<T, M>::R][K6<T, M>::C], float* tile,
+                                         int tb, int tt, int S, int chunk, int& next_si,
+                                         float*& si, int rg, int cg) {
+  using L = K6<T, M>;
+  constexpr int R = L::R, C = L::C, G = L::G, HS = L::HS, TS = L::TS, HX = L::HX;
+  constexpr int H0 = HS / HX;            // steps of one value of the items
+  const float* r_s = tile;
+  const float* k_s = tile + TS * M;
+  const float* v_s = tile + 2 * TS * M;
+  const float* w_s = tile + 3 * TS * M;
+  float* y_s = tile + 4 * TS * M;
+  const float* ruk = y_s + TS * L::YS;
+  float acc[G][HX];                      // item (s % H0) C + c, value s / H0: step s, column c
+#pragma unroll
+  for (int s = 0; s < HS; ++s) {
+    const int t = tb + s;
+    if ((EACH || s == 0) && tt + s == next_si) {   // this chunk's initial state
+#pragma unroll
+      for (int x = 0; x < R; ++x) st_row<C>(si + (R * rg + x) * M + C * cg, st[x]);
+      si += M * M;
+      next_si = next_si < S - chunk ? next_si + chunk : -1;
+    }
+    float rr[R], kk[R], ww[R], vv[C];
+    lds<R>(r_s + t * M + R * rg, rr);
+    lds<R>(k_s + t * M + R * rg, kk);
+    lds<R>(w_s + t * M + R * rg, ww);
+    lds<C>(v_s + t * M + C * cg, vv);
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      float p = 0.f;
+#pragma unroll
+      for (int x = 0; x < R; ++x) p = fmaf(rr[x], st[x][c], p);
+      acc[s % H0 * C + c][s / H0] = p;
+    }
+#pragma unroll
+    for (int x = 0; x < R; ++x)
+#pragma unroll
+      for (int c = 0; c < C; ++c) st[x][c] = fmaf(ww[x], st[x][c], kk[x] * vv[c]);
+  }
+  group_transpose_sum<G, HX, L::CPW>(acc, rg);
+  const int col = C * cg + rg % C;
+#pragma unroll
+  for (int h = 0; h < HX; ++h) {
+    const int tq = tb + H0 * h + rg / C;
+    y_s[tq * L::YS + col] = fmaf(v_s[tq * M + col], ruk[tq], acc[0][h]);
+  }
+}
+
+// K6's producers (the last NP threads): for each tile, wait for its copy in the stage and
+// for the consumers to release the tile buffer it goes to, write out the y that buffer
+// holds (two tiles back), convert the stage into it, start copying the next tile, and
+// mark the buffer full.  bars: [0] the stage's copy, [1 + b] buffer b full, [3 + b]
+// buffer b empty.
+template <typename T, int M, bool VEC>
+__device__ __forceinline__ void k6_produce(unsigned char* stage, float* tiles,
+                                           const float* u_s, unsigned long long* bars,
+                                           const T* r, const T* k, const T* v, const float* w,
+                                           T* y, size_t seq, int S, int n_tiles) {
+  using L = K6<T, M>;
+  constexpr int TS = L::TS, TF = L::TILE / sizeof(float);
+  const int pt = threadIdx.x - L::NC;
+  k6_fill<T, M, VEC>(stage, r, k, v, w, seq, min(TS, S), bars, pt);
+  for (int n = 0; n < n_tiles; ++n) {
+    const int b = n & 1, t0 = n * TS;
+    float* tile = tiles + b * TF;
+    if constexpr (VEC) mbar_wait(bars, n & 1);    // tile n is in the stage
+    else k6_sync_producers();               // ... as the producers copied it
+    if (n >= 2) {                                 // the buffer's tile n - 2 is consumed
+      mbar_wait(bars + 3 + b, ((n - 2) >> 1) & 1);
+      k6_write_y<T, M>(y + seq + (size_t)(t0 - 2 * TS) * M, tile + 4 * TS * M, TS, pt);
+    }
+    k6_convert<T, M>(stage, tile, u_s, min(TS, S - t0), pt);
+    k6_sync_producers();                    // the stage is read
+    if (n + 1 < n_tiles)
+      k6_fill<T, M, VEC>(stage, r, k, v, w, seq + (size_t)(t0 + TS) * M,
+                         min(TS, S - t0 - TS), bars, pt);
+    __syncwarp();
+    if (pt % 32 == 0) mbar_arrive(bars + 1 + b);  // tile n is in buffer b
+  }
+  for (int n = max(n_tiles - 2, 0); n < n_tiles; ++n) {   // the last tiles' y
+    const int b = n & 1;
+    mbar_wait(bars + 3 + b, (n >> 1) & 1);
+    k6_write_y<T, M>(y + seq + (size_t)n * TS * M, tiles + b * TF + 4 * TS * M,
+                     min(TS, S - n * TS), pt);
+  }
+}
+
+// K6's consumers (the first NC threads): the state in registers, the tiles in order, HS
+// steps at a time; each warp releases a buffer when it is done with it.
+template <typename T, int M>
+__device__ __forceinline__ void k6_consume(float* tiles, unsigned long long* bars,
+                                           float* s_init, float* s_final, int S, int chunk,
+                                           int n_chunks, int n_tiles, int bh) {
+  using L = K6<T, M>;
+  constexpr int R = L::R, C = L::C, TS = L::TS, CPW = L::CPW, TF = L::TILE / sizeof(float);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int rg = lane / CPW, cg = warp * CPW + lane % CPW;
+  float st[R][C];
+#pragma unroll
+  for (int x = 0; x < R; ++x)
+#pragma unroll
+    for (int c = 0; c < C; ++c) st[x][c] = 0.f;
+  int next_si = 0;                       // the step that starts the next chunk
+  float* si = s_init + (size_t)bh * n_chunks * M * M;
+  const bool each = chunk % L::HS != 0;
+  for (int n = 0; n < n_tiles; ++n) {
+    const int b = n & 1, t0 = n * TS, steps = min(TS, S - t0);
+    float* tile = tiles + b * TF;
+    mbar_wait(bars + 1 + b, (n >> 1) & 1);   // buffer b holds tile n
+    if (each) {
+      for (int tb = 0; tb < steps; tb += L::HS)
+        k6_steps<T, M, true>(st, tile, tb, t0 + tb, S, chunk, next_si, si, rg, cg);
+    } else {
+      for (int tb = 0; tb < steps; tb += L::HS)
+        k6_steps<T, M, false>(st, tile, tb, t0 + tb, S, chunk, next_si, si, rg, cg);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bars + 3 + b);   // this warp is done with buffer b
   }
   float* sf = s_final + (size_t)bh * M * M;
 #pragma unroll
-  for (int e = 0; e < E; ++e) sf[(q + Q * e) * M + j] = st[e];
+  for (int x = 0; x < R; ++x) st_row<C>(sf + (R * rg + x) * M + C * cg, st[x]);
+}
+
+// K6.  One block per (b, h): NC compute threads hold the state and walk the tiles of TS
+// steps; NP producer threads copy, convert and write out y, a tile ahead, through one
+// stage and two tile buffers (warp specialisation: no block-wide barrier in the walk).
+template <typename T, int M, bool VEC>
+__global__ void __launch_bounds__(K6<T, M>::NT, 1) wkv6_fwd_kernel(
+    const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
+    const float* __restrict__ w, const float* __restrict__ u, T* __restrict__ y,
+    float* __restrict__ s_final, float* __restrict__ s_init, int H, int S, int chunk,
+    int n_chunks) {
+  using L = K6<T, M>;
+  extern __shared__ float4 smem4[];
+  unsigned char* stage = reinterpret_cast<unsigned char*>(smem4);
+  float* tiles = reinterpret_cast<float*>(stage + L::STAGE);       // two tile buffers
+  float* u_s = tiles + 2 * L::TILE / sizeof(float);
+  unsigned long long* bars = reinterpret_cast<unsigned long long*>(u_s + M);
+  const int bh = blockIdx.x, h = bh % H;
+  if (threadIdx.x < M) u_s[threadIdx.x] = u[h * M + threadIdx.x];
+  if (threadIdx.x == 0) {
+    mbar_init(bars, 1);
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(bars + 1 + b, L::NP / 32);
+      mbar_init(bars + 3 + b, L::NC / 32);
+    }
+  }
+  __syncthreads();   // u and the mbarriers are ready
+  const int n_tiles = (S + L::TS - 1) / L::TS;
+  // warp-uniform to the compiler (read from lane 0), so the shuffles inside the roles
+  // need no code for a diverged warp
+  if (__shfl_sync(FULL, threadIdx.x >= L::NC, 0))
+    k6_produce<T, M, VEC>(stage, tiles, u_s, bars, r, k, v, w, y, (size_t)bh * S * M, S,
+                          n_tiles);
+  else
+    k6_consume<T, M>(tiles, bars, s_init, s_final, S, chunk, n_chunks, n_tiles, bh);
 }
 
 // K7 geometry.  A block of k7_threads<M>() threads (384 at M = 64) holds the (b, h) pair's
@@ -332,51 +625,6 @@ __device__ __forceinline__ void k7_convert(const unsigned char* stage, float* ti
       ruk[t] = a;
       vdy[t] = b;
     }
-  }
-}
-
-// One level of group_transpose_sum: lanes gi and gi ^ HALF exchange halves of their first
-// 2 HALF items, each keeping the half its bit HALF selects, then the next level.  HALF is a
-// template argument so that every loop has a constant trip count and v stays in registers.
-template <int HALF, int G, int C>
-__device__ __forceinline__ void transpose_level(float (&v)[G][C], int gi) {
-  if constexpr (HALF >= 1) {
-    const bool up = gi & HALF;
-#pragma unroll
-    for (int s = 0; s < HALF; ++s)
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const float send = up ? v[s][c] : v[s + HALF][c];
-        const float keep = up ? v[s + HALF][c] : v[s][c];
-        v[s][c] = keep + __shfl_xor_sync(FULL, send, HALF);
-      }
-    transpose_level<HALF / 2, G, C>(v, gi);
-  }
-}
-
-// v[s][c] is this lane's part of value c of item s.  On return v[0][c] is the sum, over
-// the G neighbouring lanes of its group (lane % G = gi), of value c of item gi: lane gi
-// holds item gi's sums, after G - 1 shuffles a value (log2 G a value and item with a sum
-// on every lane).
-template <int G, int C>
-__device__ __forceinline__ void group_transpose_sum(float (&v)[G][C], int gi) {
-  static_assert(G >= 2 && G <= 16 && (G & (G - 1)) == 0, "a power of two lanes, at most 16");
-  transpose_level<G / 2, G, C>(v, gi);
-}
-
-// N consecutive floats of shared memory (N = 2, or a multiple of 4 16-byte aligned).
-template <int N>
-__device__ __forceinline__ void lds(const float* p, float (&o)[N]) {
-  if constexpr (N % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < N / 4; ++i) {
-      const float4 f = *reinterpret_cast<const float4*>(p + 4 * i);
-      o[4 * i] = f.x; o[4 * i + 1] = f.y; o[4 * i + 2] = f.z; o[4 * i + 3] = f.w;
-    }
-  } else {
-    static_assert(N == 2, "2 floats, or a multiple of 4");
-    const float2 f = *reinterpret_cast<const float2*>(p);
-    o[0] = f.x; o[1] = f.y;
   }
 }
 
@@ -662,26 +910,42 @@ __global__ void __launch_bounds__(k7_threads<M>(), 1) wkv6_bwd_kernel(
   }
 }
 
-size_t fwd_smem(int M) { return sizeof(float) * (4 * TS * M + TS + M); }
-
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <typename T, int M>
-cudaError_t launch_fwd(const void* r, const void* k, const void* v, const void* w,
-                       const void* u, void* y, void* s_final, void* s_init, int B, int H,
-                       int S, int chunk, cudaStream_t stream) {
-  const size_t smem = fwd_smem(M);
-  cudaError_t e = allow_smem(fwd_kernel<T, M>, smem);
+template <typename T, int M, bool VEC>
+cudaError_t launch_wkv6_fwd(const void* r, const void* k, const void* v, const void* w,
+                            const void* u, void* y, void* s_final, void* s_init, int B, int H,
+                            int S, int chunk, cudaStream_t stream) {
+  constexpr size_t smem = K6<T, M>::BYTES;
+  cudaError_t e = allow_smem(wkv6_fwd_kernel<T, M, VEC>, smem);
   if (e != cudaSuccess) return e;
   const int n_chunks = (S + chunk - 1) / chunk;
-  fwd_kernel<T, M><<<B * H, Q * M, smem, stream>>>(
+  wkv6_fwd_kernel<T, M, VEC><<<B * H, K6<T, M>::NT, smem, stream>>>(
       static_cast<const T*>(r), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(w), static_cast<const float*>(u), static_cast<T*>(y),
       static_cast<float*>(s_final), static_cast<float*>(s_init), H, S, chunk, n_chunks);
   return cudaGetLastError();
+}
+
+// K6 for any chunk of 1 step or more, fed by bulk copies where r, k, v and w are 16-byte
+// aligned.  y must be 16-byte aligned (its rows leave in 16-byte stores) and the states
+// 8-byte aligned, as the wrapper allocates them.
+template <typename T, int M>
+cudaError_t launch_fwd(const void* r, const void* k, const void* v, const void* w,
+                       const void* u, void* y, void* s_final, void* s_init, int B, int H,
+                       int S, int chunk, cudaStream_t stream) {
+  if (chunk < 1 || S < 1 || (reinterpret_cast<uintptr_t>(y) & 15) ||
+      ((reinterpret_cast<uintptr_t>(s_final) | reinterpret_cast<uintptr_t>(s_init)) & 7))
+    return cudaErrorInvalidValue;
+  const bool vec = ((reinterpret_cast<uintptr_t>(r) | reinterpret_cast<uintptr_t>(k) |
+                     reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(w)) & 15) == 0;
+  return vec ? launch_wkv6_fwd<T, M, true>(r, k, v, w, u, y, s_final, s_init, B, H, S, chunk,
+                                           stream)
+             : launch_wkv6_fwd<T, M, false>(r, k, v, w, u, y, s_final, s_init, B, H, S, chunk,
+                                            stream);
 }
 
 template <typename T, int M, bool VEC>

@@ -24,8 +24,10 @@ same chunked algorithm as sequential torch loops.  The entry point
 versions for a CPU tensor.
 
 The chunk is internal (no output depends on it): ``CHUNK`` steps.  K6 takes
-any chunk; K7 replays a chunk's states in registers, in sub-chunks of 4
-steps, and takes chunks of 1 to ``K7_CHUNK`` steps.  The plain versions take
+any chunk (it walks the sequence in tiles of ``K6_TILE`` steps in bf16,
+half that in fp32, which a chunk need not divide); K7 replays a chunk's
+states in registers, in sub-chunks of 4 steps, and takes chunks of 1 to
+``K7_CHUNK`` steps.  The plain versions take
 inputs padded to a chunk multiple with the identity values of
 ``kernels/blocking.py``; the CUDA kernels load those values past the end.
 """
@@ -40,6 +42,7 @@ from repro_torch.kernels.blocking import RWKV6_PAD_W, pad_axis, pick_block
 
 CHUNK = 16
 K7_CHUNK = 16        # the longest chunk K7 takes (K7_CH in the .cu)
+K6_TILE = 64         # the steps K6 copies in at a time in bf16, half in fp32 (K6<T, M>::TS)
 
 # Kernel launches since the last reset: kernel ("fwd" K6, "bwd" K7) -> count.
 LAUNCHES: Counter = Counter()

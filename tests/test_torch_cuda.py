@@ -226,6 +226,59 @@ def test_cuda_rwkv6_backward_is_deterministic(dtype):
             assert torch.equal(a, b)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_rwkv6_forward_is_deterministic(dtype):
+    """K6 run twice on the same inputs gives bitwise equal y, s_final and
+    s_init: no atomics, every sum in a fixed order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for (B, H, S, M, _, offset) in RWKV_CASES:
+        r, k, v, w, u = _rwkv_inputs(gen, dt, B, H, S, M)
+        if offset:
+            r, k, v = (_offset_leaf(t)[1].detach() for t in (r, k, v))
+        chunk = min(rwkv6_scan.CHUNK, S)
+        runs = [rwkv6_scan.wkv_fwd(r, k, v, w, u, chunk) for _ in range(2)]
+        for a, b in zip(*runs):
+            assert torch.equal(a, b)
+
+
+# (S, chunk, M, offset) of K6's tile edges: S one under and one over a tile
+# (K6_TILE steps) and past two, chunks 1 and 3 (not a multiple of the 4 steps
+# whose sums K6 takes together, so a chunk starts inside such a group and an
+# identity step past S must start none), 8 and 16
+K6_EDGES = [(rwkv6_scan.K6_TILE - 1, 16, 64, False), (rwkv6_scan.K6_TILE + 1, 16, 64, False),
+            (rwkv6_scan.K6_TILE + 1, 1, 64, False), (rwkv6_scan.K6_TILE - 1, 3, 32, False),
+            (2 * rwkv6_scan.K6_TILE + 1, 3, 64, True), (2 * rwkv6_scan.K6_TILE + 1, 8, 32, False),
+            (5, 3, 64, False), (1, 1, 64, False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_rwkv6_forward_states_match_plain(dtype):
+    """K6's s_init and s_final at chunks 1, 3, 8 and 16 and at S one step on
+    either side of a tile match ``fwd_plain`` at fp32's tolerance in both
+    types (both compute the states in fp32), y at the type's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    for (S, chunk, M, offset) in K6_EDGES:
+        B, H = 2, 2
+        r, k, v, w, u = _rwkv_inputs(gen, dt, B, H, S, M)
+        kr, kk, kv = ((_offset_leaf(t)[1].detach() for t in (r, k, v)) if offset
+                      else (r, k, v))
+        y, s_final, s_init = rwkv6_scan.wkv_fwd(kr, kk, kv, w, u, chunk)
+        S_p = -(-S // chunk) * chunk
+        pad = lambda t, x=0.0: torch.nn.functional.pad(t, (0, 0, 0, S_p - S), value=x)  # noqa: E731
+        y_p, f_p, i_p = rwkv6_scan.fwd_plain(pad(r), pad(k), pad(v), pad(w, 1.0), u, chunk)
+        assert s_init.shape == i_p.shape == (B, H, -(-S // chunk), M, M)
+        _assert_close([[s_final, s_init], [f_p, i_p]], torch.float32)
+        _assert_close([[y], [y_p[:, :, :S]]], dt)
+
+
 # (B, S, di) of the Mamba scan cases
 MAMBA_CASES = [(2, 131, 300), (1, 64, 128), (3, 17, 40), (1, 1, 36), (3, 5, 36)]
 
