@@ -23,11 +23,14 @@ Phases, each reported on its own lines:
                 chunks, B > 1, S 1 and 5, under a chunk; for K6/K7 S one past
                 a chunk, M 32 and a nonzero final-state cotangent, and r, k, v,
                 dy one element off 16-byte alignment, K7's plain-load path; for
-                K4/K5 di 36, not a multiple of K5's 8 channels a warp); the
-                scans' fp32 outputs (K4's h_init, K5's gradients and partials,
-                K6's states, K7's gradients, on every scan case) against the
-                plain versions' at fp32's tolerance, in bf16 too; K6, K5 and K7
-                run twice on each scan case must give bitwise equal outputs;
+                K4/K5 di 36, not a multiple of K5's 8 channels a warp, S one past
+                K4's tile, and u, dt off 16-byte alignment, their plain-load
+                path); the scans' fp32 outputs (K4's h_init, K5's gradients and
+                partials, K6's states, K7's gradients, on every scan case)
+                against the plain versions' at fp32's tolerance, in bf16 too;
+                K4, K5, K6 and K7 run twice on each scan case must give bitwise
+                equal outputs; K4's timing line also gives its bound with the
+                h_init bytes and its exponential floor;
   4. timing   — every kernel at its path shapes with CUDA events, beside its
                 plain version, the card's bound and the PyTorch yardstick
                 where one exists (SDPA for K1–K3; none computes a scan);
@@ -78,6 +81,9 @@ PEAK_BF16 = 989e12            # H100 SXM dense tensor-core FLOP/s
 # their bound takes the fp32 CUDA-core peak.
 PEAK_FP32 = 67e12
 HBM_BYTES_PER_S = 3.35e12
+# The SFUs' exponentials (ex2.approx): 16 a clock an SM, 132 SMs at the H100
+# SXM's 1.98 GHz boost clock; K4's floor, printed beside its bound.
+SFU_EXP_PER_S = 16 * 132 * 1.98e9
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCE = {"K1": "packed_flash_attention.cu", "K2": "packed_flash_attention.cu",
           "K3": "packed_flash_attention.cu", "K4": "mamba_scan.cu",
@@ -96,10 +102,10 @@ TRACE_NAME = {"K1": "fwd_tc_kernel", "K2": "bwd_dq_tc", "K3": "bwd_dkv_tc"}
 SCAN_NAME = {"K4": "mamba_fwd", "K5": "mamba_bwd", "K6": "wkv6_fwd",
              "K7": "wkv6_bwd"}
 # The bf16 scan kernels in a profiler trace, by name and leading template
-# arguments: K4 fwd_kernel<T, N> and K5 bwd_kernel<T, N, VEC> (mamba_scan.cu,
+# arguments: K4 fwd_kernel<T, N, VEC> and K5 bwd_kernel<T, N, VEC> (mamba_scan.cu,
 # N the state width), K6 wkv6_fwd_kernel<T, M, VEC> and K7
 # wkv6_bwd_kernel<T, M, VEC> (rwkv6_scan.cu, M the head size); {n} is N or M.
-SCAN_TRACE = {"K4": r"\bfwd_kernel<__nv_bfloat16, {n}>",
+SCAN_TRACE = {"K4": r"\bfwd_kernel<__nv_bfloat16, {n}[,>]",
               "K5": r"\bbwd_kernel<__nv_bfloat16, {n}[,>]",
               "K6": r"\bwkv6_fwd_kernel<__nv_bfloat16, {n}[,>]",
               "K7": r"\bwkv6_bwd_kernel<__nv_bfloat16, {n}[,>]"}
@@ -418,9 +424,11 @@ def main() -> int:
             raise SystemExit("off_view: the view is 16-byte aligned")
         return out
 
-    def mamba_case(B, S, di, N, dtype, path=False):
+    def mamba_case(B, S, di, N, dtype, path=False, offset=False):
         """u, dt, B_t, C_t, A, D as the model makes them at the path shape
-        (dt = softplus(. - 4), A = -(1..N), D = 1) and the cotangent of y."""
+        (dt = softplus(. - 4), A = -(1..N), D = 1) and the cotangent of y.
+        With ``offset`` the direct K4/K5 calls of ``raw_pair`` take u and dt
+        one element past a 16-byte aligned allocation."""
         u = rnd(B, S, di, dtype=dtype)
         dt = torch.nn.functional.softplus(rnd(B, S, di) - (4 if path else 1)).to(dtype)
         A = (-torch.arange(1, N + 1, device=dev, dtype=torch.float32).expand(di, N).contiguous()
@@ -429,7 +437,7 @@ def main() -> int:
         return dict(kind="mamba", ins=(u, dt, rnd(B, S, N, dtype=dtype),
                                        rnd(B, S, N, dtype=dtype), A, D),
                     cots=(rnd(B, S, di, dtype=dtype),),
-                    names=("y", "du", "ddt", "dB", "dC", "dA", "dD"))
+                    names=("y", "du", "ddt", "dB", "dC", "dA", "dD"), offset=offset)
 
     def scan_pair(c):
         """Outputs and input gradients, kernels vs plain versions."""
@@ -474,6 +482,14 @@ def main() -> int:
         "mamba_S1_di36/f32": lambda: mamba_case(1, 1, 36, 16, torch.float32),
         "mamba_S5_B3_di36/f32": lambda: mamba_case(3, 5, 36, 16, torch.float32),
         "mamba_S5_B3_di36/bf16": lambda: mamba_case(3, 5, 36, 16, torch.bfloat16),
+        # one step past K4's tile, and u, dt off 16-byte alignment (K4's and
+        # K5's plain-load path)
+        f"mamba_S{mamba_scan.K4_TILE + 1}_B2/bf16": lambda: mamba_case(
+            2, mamba_scan.K4_TILE + 1, 256, 16, torch.bfloat16),
+        "mamba_S61_offset/bf16": lambda: mamba_case(2, 61, 384, 16, torch.bfloat16,
+                                                    offset=True),
+        "mamba_S61_offset/f32": lambda: mamba_case(2, 61, 384, 16, torch.float32,
+                                                   offset=True),
     }
     log(f"[compare] scan chunks: K4/K5 {mamba_scan.CHUNK}, K6/K7 {rwkv6_scan.CHUNK}")
 
@@ -484,11 +500,12 @@ def main() -> int:
         to the inputs' type), and the kernels that must give bitwise equal
         outputs when run twice on the same inputs, each with whether they
         did.  The plain versions take the sequences padded to a chunk
-        multiple with identity steps.  Mamba: K4's h_init, then K5 on it
-        twice.  RWKV6: K6 twice (y, s_final, s_init), then K7 twice on its
-        states, with the case's final-state cotangent (zeros, as training
-        runs it, where it has none); with ``offset`` the kernels take r, k,
-        v, dy as unaligned views."""
+        multiple with identity steps.  Mamba: K4 twice (y, h_init), then
+        K5 twice on its h_init; with ``offset`` the kernels take u and dt as
+        unaligned views.  RWKV6: K6 twice (y, s_final, s_init), then K7
+        twice on its states, with the case's final-state cotangent (zeros,
+        as training runs it, where it has none); with ``offset`` the kernels
+        take r, k, v, dy as unaligned views."""
         if c["kind"] == "rwkv6":
             r, k, v, w, uu = c["ins"]
             B, H, S, M = r.shape
@@ -519,16 +536,19 @@ def main() -> int:
         chunk = min(mamba_scan.CHUNK, S)
         S_p = -(-S // chunk) * chunk
         pad = lambda t: torch.nn.functional.pad(t, (0, 0, 0, S_p - S))  # noqa: E731
-        _, h_init = mamba_scan.scan_fwd(u, dtt, Bt, Ct, A, D, chunk)
+        ku, kdt = (off_view(u), off_view(dtt)) if c["offset"] else (u, dtt)
+        fwd_runs = [mamba_scan.scan_fwd(ku, kdt, Bt, Ct, A, D, chunk) for _ in range(2)]
+        _, h_init = fwd_runs[0]
         _, p_init = mamba_scan.fwd_plain(pad(u), pad(dtt), pad(Bt), pad(Ct), A, D, chunk)
-        runs = [mamba_scan.scan_bwd(u, dtt, Bt, Ct, A, D, h_init, dy, chunk)
+        runs = [mamba_scan.scan_bwd(ku, kdt, Bt, Ct, A, D, h_init, dy, chunk)
                 for _ in range(2)]
         ref = mamba_scan.bwd_plain(pad(u), pad(dtt), pad(Bt), pad(Ct), A, D, h_init,
                                    pad(dy), chunk)
         ref = [x[:, :S] for x in ref[:2]] + [x[:, :, :S] for x in ref[2:4]] + list(ref[4:])
         return (rel_errors(("h_init", "du", "ddt", "dB", "dC", "dA", "dD"),
                            (h_init, *runs[0]), (p_init, *ref)),
-                {"K5": all(torch.equal(a, b) for a, b in zip(*runs))})
+                {"K4": all(torch.equal(a, b) for a, b in zip(*fwd_runs)),
+                 "K5": all(torch.equal(a, b) for a, b in zip(*runs))})
 
     for cname, make in scan_cases.items():
         c = make()
@@ -696,6 +716,19 @@ def main() -> int:
             f"{ops_ / ms_k / 1e9:.2f} TFLOP/s")
     log(f"[timing] the reference's WKV count (bench.rwkv6_flops, 6 per state element "
         f"and step) would be {bench.rwkv6_flops(*dims_r) / 1e9:.2f} GFLOP for K6")
+    # K4's other floors, logged only: its bytes with the chunk-initial states it
+    # writes for K5, and its exponentials (one a state element and step) on the
+    # SFUs at the H100's rated clock
+    dims_m = [sh_m[n] for n in ("B", "S", "di", "N")]
+    hi_bytes = bench.mamba_fwd_h_init_bytes(*dims_m, mamba_scan.CHUNK)
+    t_hi = (work["K4"][2] + hi_bytes) / HBM_BYTES_PER_S * 1e3
+    n_exp = bench.mamba_fwd_exps(*dims_m)
+    t_exp = n_exp / SFU_EXP_PER_S * 1e3
+    log(f"[timing] K4 jamba: with h_init at chunk {mamba_scan.CHUNK} "
+        f"({hi_bytes / 1e9:.3f} GB more) its bytes take {t_hi:.4f} ms; its "
+        f"{n_exp / 1e9:.3f} G exponentials at 16 a clock an SM (132 SMs, 1.98 GHz) "
+        f"{t_exp:.4f} ms, {100 * t_exp / scan_t['K4'][0]:.1f} % of the kernel's "
+        f"{scan_t['K4'][0]:.3f} ms")
 
     # Launches at the gemma-shaped key (bf16, D 256, causal), summed over every
     # training phase's 3 steps: each phase adds its counts before the next resets

@@ -49,6 +49,17 @@ def mamba_fwd_bytes(B: int, S: int, di: int, N: int, e: int) -> float:
     return e * (3 * B * S * di + 2 * B * S * N) + 4 * (di * N + di)
 
 
+def mamba_fwd_h_init_bytes(B: int, S: int, di: int, N: int, chunk: int) -> float:
+    """K4's residual: the fp32 chunk-initial states (B, ceil(S / chunk), di, N)
+    it writes for K5, beyond ``mamba_fwd_bytes``."""
+    return 4.0 * B * -(-S // chunk) * di * N
+
+
+def mamba_fwd_exps(B: int, S: int, di: int, N: int) -> float:
+    """K4's exponentials: one decay exp(dt·a) a state element and step."""
+    return float(B * S * di * N)
+
+
 def mamba_bwd_bytes(B: int, S: int, di: int, N: int, e: int) -> float:
     """K5: u, dt, B_t, C_t, A, D, dy in; du, ddt, dB, dC, dA, dD (f32) out."""
     return (e * (3 * B * S * di + 2 * B * S * N) + 4 * (di * N + di)

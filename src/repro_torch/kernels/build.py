@@ -2,8 +2,9 @@
 
 Each source under ``kernels/csrc/`` compiles, on first use, into a shared
 library with a plain C interface under ``<repo>/build/kernels/``.  The file
-name carries a hash of the source and flags, so an edited source is rebuilt
-and an unchanged one is loaded as it is.  Nothing here runs at import time:
+name carries a hash of the source, the shared headers (``csrc/*.cuh``) and
+the flags, so an edited source or header is rebuilt and an unchanged one is
+loaded as it is.  Nothing here runs at import time:
 the CPU tests import every module, and this machine need have no ``nvcc``.
 
     >>> from repro_torch.kernels import build
@@ -67,11 +68,18 @@ def nvcc() -> str:
     return path
 
 
+def _digest(src: Path, tail: list[str]) -> str:
+    """Hash of ``src``, every shared header of ``csrc/`` and the flags."""
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(tail).encode())
+    return h.hexdigest()[:16]
+
+
 def _target(name: str) -> tuple[Path, list[str]]:
-    src = CSRC / f"{name}.cu"
     cmd_tail = ARCH_FLAGS + FLAGS
-    digest = hashlib.sha256(src.read_bytes() + " ".join(cmd_tail).encode())
-    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so", cmd_tail
+    return BUILD_DIR / f"lib{name}-{_digest(CSRC / f'{name}.cu', cmd_tail)}.so", cmd_tail
 
 
 def _nvcc(src: Path, out: Path, tail: list[str]) -> list[str]:
@@ -113,11 +121,11 @@ def load(name: str) -> ctypes.CDLL:
 def load_from(src, name: str, extra_flags=()) -> tuple[ctypes.CDLL, list[str]]:
     """Build another source of library ``name`` (e.g. a parent commit's
     ``csrc/<name>.cu``) with this module's flags and ``extra_flags``, and
-    load it with ``name``'s signatures: (library, its ptxas lines).  The
+    load it with ``name``'s signatures: (library, its ptxas lines).  An
+    edited copy outside ``csrc/`` includes ``csrc/``'s shared headers.  The
     wrappers go on calling ``load(name)`` until ``use`` swaps it in."""
-    tail = ARCH_FLAGS + FLAGS + list(extra_flags)
-    digest = hashlib.sha256(Path(src).read_bytes() + " ".join(tail).encode())
-    out = BUILD_DIR / f"lib{name}-from-{digest.hexdigest()[:16]}.so"
+    tail = ARCH_FLAGS + FLAGS + ["-I", str(CSRC)] + list(extra_flags)
+    out = BUILD_DIR / f"lib{name}-from-{_digest(Path(src), tail)}.so"
     lines = _nvcc(Path(src), out, tail)
     return _bind(ctypes.CDLL(str(out)), name), lines
 

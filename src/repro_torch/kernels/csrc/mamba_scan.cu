@@ -15,13 +15,47 @@
 // chunk) is masked here: steps past S load dt = u = 0 (the identity step of
 // kernels/blocking.py) and are not written; channels past di compute zeros.
 //
-// K4.  The TPU grid's sequential chunk axis becomes a loop inside one block per (batch
-// row, 128 channels); each thread owns one channel and its N = 16 state in registers.
-// B_t and C_t, shared by all channels, and the channels' u and dt come through shared
-// memory 64 steps at a time.  Per step and channel it does ~6 N fp32 operations and N
-// exponentials on ~8 bytes of input; with one thread per channel the grid holds B*di
-// threads (16384 at Jamba's B = 2, di = 8192), about four warps per SM.
-//
+// K4 (fwd_kernel<T, N, VEC>).  What bounds it on the H100, at Jamba's shape (B 2, S 4096,
+// di 8192, N 16, bf16): its own bytes (u and dt read, y written; B_t, C_t, A, D are small)
+// are 0.404 GB, 0.1205 ms at 3.35 TB/s; with the fp32 chunk-initial states it writes for
+// K5 (0.268 GB at chunk 16) 0.2006 ms.  The exponentials set the highest floor: one a state
+// element and step, B S di N = 1.074 G on the SFUs (16 a clock an SM, 132 SMs, 1.98 GHz),
+// about 0.257 ms; its ~6 fp32 operations an element and step are far under the FMA rate.
+// Design.  The TPU grid's sequential chunk axis becomes a loop inside one block per (batch
+// row, 128 channels).  Each channel's state is split over L = 2 lanes, 8 states a
+// lane (256 threads; a warp covers 16 channels, lane l channel l / 2 of the warp, states
+// 8 (l % 2) .. 8 (l % 2) + 7).
+//   - Each step a lane does 8 decays ex2.approx((dt log2 e) a), dt scaled once a step, and
+//     8 updates h = fmaf(h, decay, (dt u) b): K5's replay in the same operations, so K5
+//     replays bitwise the states K4 computed.  The state does not depend on the chunk.
+//   - y: each lane's partial h . C_t over its states (lane 0 of a channel adds D u) for
+//     HS = 16 steps, then one transposing reduce over the channel's lanes (8 shuffles
+//     for 16 steps) leaves each lane 8 steps' sums; they go through the warp's own y tile
+//     in shared memory and out as 16-byte stores of whole rows of the warp's channels.
+//   - Tiles copied in ahead of use: 64 steps (32 in fp32) of u and dt (in T) by 16-byte
+//     cp.async pieces that report to the stage's `full` mbarrier, and of B_t and C_t
+//     (each thread loads its share a tile early and stores it converted to fp32), into a
+//     ring of NS = 3 stages, two tiles ahead; each warp releases a stage on its
+//     `empty` mbarrier, so no block-wide barrier waits on device memory.  Where
+//     di * sizeof(T) is not a multiple of 16 or a pointer is not 16-byte aligned, plain
+//     loads fill the stage instead (VEC false).
+//   - h_init: at the step a countdown names (no division in the step loop; retired at S,
+//     so an identity step past S starts no chunk), each lane stores its states as 16-byte
+//     pieces, a warp 1 KB contiguous.  Any chunk >= 1; with a chunk that is a multiple of
+//     HS only a group's first step is checked (k4_steps<..., EACH = false>): checking every
+//     step at Jamba's chunk 16 measured 0.524-0.529 ms against 0.474-0.479 (1016 loop
+//     instructions for 16 steps against 893; tools/mamba_ab.py, H100 SXM at 700 W).
+//   - No atomics: two runs give bitwise equal y and h_init.
+// Measured (tools/mamba_ab.py, H100 SXM at 700 W): about 0.475 ms at Jamba's shape against
+// 2.56 for the one-thread-a-channel kernel it replaced; 180 registers, no spill; the loop
+// issues ~7 instructions an exponential, ~49 % of the cycles with 8 warps an SM.  Probes
+// (a part removed): the exponentials cost 21 %, the h_init stores 10 %, the y shuffles
+// 9 %, the cross-warp release of a stage 2 %, the shared-memory loads nothing measurable;
+// none alone bounds it.  Timed and not kept: 4 lanes x 4 states (0.516 ms; 16 warps, but
+// 25 % more instructions an exponential), 8 x 2 (0.65), sums of 4, 8 or 32 steps, 2 or 4
+// stages, u/dt rings of each warp's own columns with B_t/C_t in a deeper ring, B_t/C_t
+// kept in bf16 (its conversions cost more than the loads saved).
+
 // K5.  One block per (batch row, 128 channels) walks the chunks from last to first;
 // each channel's state is split over 4 lanes, 4 states a lane, so a block is 512
 // threads (16 warps) and the grid at Jamba's shape holds 65,536 threads, one block on
@@ -69,11 +103,11 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "scan_common.cuh"
+
 namespace {
 
-constexpr int CB = 128;              // channels per block (K4: a thread each; K5: 4 lanes)
-constexpr int TS = 64;               // K4: steps per shared-memory tile
-constexpr unsigned FULL = 0xffffffffu;
+constexpr int CB = 128;              // channels per block (K4: K4<T, N>::L lanes each; K5: 4)
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -82,25 +116,6 @@ template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
-}
-
-// Steps [t0, t0 + n) of the block's channels of a (S, di) sequence into a (tile, CB)
-// fp32 tile; steps past n and channels past di hold 0.
-template <typename T>
-__device__ __forceinline__ void load_channels(float* dst, const T* src, int t0, int n,
-                                              int tile, int c0, int di) {
-  for (int idx = threadIdx.x; idx < tile * CB; idx += CB) {
-    const int t = idx / CB, c = c0 + idx % CB;
-    dst[idx] = t < n && c < di ? to_f(src[(size_t)(t0 + t) * di + c]) : 0.f;
-  }
-}
-
-// Steps [t0, t0 + n) of a (S, N) sequence into a (tile, N) fp32 tile, 0 past n.
-template <typename T, int N>
-__device__ __forceinline__ void load_state_rows(float* dst, const T* src, int t0, int n,
-                                                int tile) {
-  for (int idx = threadIdx.x; idx < tile * N; idx += CB)
-    dst[idx] = idx / N < n ? to_f(src[(size_t)t0 * N + idx]) : 0.f;
 }
 
 // K5 geometry: 4 lanes a channel, 4 states a lane.
@@ -157,60 +172,313 @@ __device__ __forceinline__ float reduce_scatter8(float (&v)[8]) {
   return v[0];
 }
 
-// K4.  Grid (channel blocks, B); thread = channel.
-template <typename T, int N>
-__global__ void __launch_bounds__(CB) fwd_kernel(const T* __restrict__ u,
-                                                 const T* __restrict__ dt,
-                                                 const T* __restrict__ Bm,
-                                                 const T* __restrict__ Cm,
-                                                 const float* __restrict__ A,
-                                                 const float* __restrict__ D,
-                                                 T* __restrict__ y, float* __restrict__ h_init,
-                                                 int S, int di, int chunk, int n_chunks) {
-  extern __shared__ float smem[];
-  float* u_s = smem;                     // (TS, CB) each
-  float* dt_s = u_s + TS * CB;
-  float* b_s = dt_s + TS * CB;           // (TS, N) each
-  float* c_s = b_s + TS * N;
+// One arrival on `bar` once every cp.async this thread has issued so far has landed.
+__device__ __forceinline__ void cp_arrive(unsigned long long* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" :: "r"(smem_addr(bar))
+               : "memory");
+}
 
-  const int b = blockIdx.y, c0 = blockIdx.x * CB, c = c0 + threadIdx.x;
-  const bool live = c < di;
-  float a[N], h[N];
+// E consecutive floats of memory, loaded or stored (16-byte pieces where E is a multiple
+// of 4, else E = 2 (or 1, stored) aligned to 4 E bytes).
+template <int E>
+__device__ __forceinline__ void ld_f(const float* p, float (&o)[E]) {
+  if constexpr (E % 4 == 0) {
 #pragma unroll
-  for (int n = 0; n < N; ++n) {
-    a[n] = live ? A[(size_t)c * N + n] : 0.f;
-    h[n] = 0.f;
-  }
-  const float dd = live ? D[c] : 0.f;
-  const size_t row = (size_t)b * S;
-
-  for (int t0 = 0; t0 < S; t0 += TS) {
-    const int steps = min(TS, S - t0);
-    __syncthreads();                     // the previous tiles are consumed
-    load_channels(u_s, u + row * di, t0, steps, TS, c0, di);
-    load_channels(dt_s, dt + row * di, t0, steps, TS, c0, di);
-    load_state_rows<T, N>(b_s, Bm + row * N, t0, steps, TS);
-    load_state_rows<T, N>(c_s, Cm + row * N, t0, steps, TS);
-    __syncthreads();
-    if (!live) continue;
-    for (int t = 0; t < steps; ++t) {
-      const int tt = t0 + t;
-      if (tt % chunk == 0) {             // this chunk's initial state
-        float4* hi = reinterpret_cast<float4*>(
-            h_init + (((size_t)b * n_chunks + tt / chunk) * di + c) * N);
-#pragma unroll
-        for (int n = 0; n < N; n += 4) hi[n / 4] = make_float4(h[n], h[n + 1], h[n + 2], h[n + 3]);
-      }
-      const float ut = u_s[t * CB + threadIdx.x], dtt = dt_s[t * CB + threadIdx.x];
-      const float x = dtt * ut;
-      float acc = 0.f;
-#pragma unroll
-      for (int n = 0; n < N; ++n) {
-        h[n] = fmaf(h[n], expf(dtt * a[n]), x * b_s[t * N + n]);
-        acc = fmaf(h[n], c_s[t * N + n], acc);
-      }
-      y[(row + tt) * di + c] = from_f<T>(fmaf(dd, ut, acc));
+    for (int i = 0; i < E / 4; ++i) {
+      const float4 f = reinterpret_cast<const float4*>(p)[i];
+      o[4 * i] = f.x; o[4 * i + 1] = f.y; o[4 * i + 2] = f.z; o[4 * i + 3] = f.w;
     }
+  } else {
+    static_assert(E == 2, "2 or a multiple of 4 floats");
+    const float2 f = *reinterpret_cast<const float2*>(p);
+    o[0] = f.x; o[1] = f.y;
+  }
+}
+template <int E>
+__device__ __forceinline__ void st_f(float* p, const float (&x)[E]) {
+  if constexpr (E % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < E / 4; ++i)
+      reinterpret_cast<float4*>(p)[i] = make_float4(x[4 * i], x[4 * i + 1], x[4 * i + 2],
+                                                    x[4 * i + 3]);
+  } else if constexpr (E == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
+  } else {
+    static_assert(E == 1, "1, 2 or a multiple of 4 floats");
+    p[0] = x[0];
+  }
+}
+
+// BYTES = 8 or 16 bytes copied as one access (both pointers aligned to BYTES).
+template <int BYTES>
+__device__ __forceinline__ void copy_raw(void* dst, const void* src) {
+  if constexpr (BYTES == 16) {
+    *static_cast<uint4*>(dst) = *static_cast<const uint4*>(src);
+  } else {
+    static_assert(BYTES == 8, "8 or 16 bytes");
+    *static_cast<uint2*>(dst) = *static_cast<const uint2*>(src);
+  }
+}
+
+// K4 geometry.  Thread (channel cl, lane q of it) of a block of CB channels: cl = tid / L,
+// q = tid % L, states SPL q .. SPL q + SPL - 1.
+template <typename T, int N>
+struct K4 {
+  static constexpr int L = 2;                            // lanes a channel
+  static constexpr int SPL = N / L;                      // states a lane
+  static constexpr int NT = CB * L;                      // threads
+  static constexpr int NW = NT / 32;
+  static constexpr int CPW = 32 / L;                     // channels a warp
+  static constexpr int HS = 16;                          // steps whose y sums are taken together
+  static constexpr int NS = 3;                           // tiles in the shared-memory ring
+  static constexpr int TS = sizeof(T) == 2 ? 64 : 32;    // steps a tile
+  static constexpr int EPT = 2 * TS * N / NT;            // B_t, C_t values a thread brings
+  static constexpr int BCW = EPT * (int)sizeof(T) / 4;   // ... in 32-bit words
+  // a stage: u, dt (TS, CB) in T, then B_t, C_t (TS, N) in fp32
+  static constexpr size_t SEQ = sizeof(T) * TS * CB;
+  static constexpr size_t STAGE = 2 * SEQ + sizeof(float) * 2 * TS * N;
+  static constexpr size_t YT = sizeof(T) * TS * CB;      // the warps' y tiles, (TS, CPW) each
+  // the ring, the y tiles, the mbarriers (full, empty a stage)
+  static constexpr size_t BYTES = NS * STAGE + YT + 2 * NS * 8;
+  static_assert(N % L == 0 && 32 % L == 0 && HS % L == 0 && TS % HS == 0, "geometry");
+  static_assert(NS >= 2 && EPT <= N && (TS * N) % EPT == 0 && BCW >= 1 &&
+                (BCW == 1 || BCW == 2 || BCW == 4), "stages, B/C shares of 4, 8 or 16 bytes");
+  static_assert((TS * CB * sizeof(T) / 16) % NT == 0, "whole 16-byte pieces a thread");
+  static_assert(STAGE % 16 == 0 && YT % 16 == 0 && BYTES <= 232448, "shared memory");
+};
+
+// Steps [0, steps) of u and dt from sequence row row0 (b S + t0) into a stage, zeros past
+// steps and di.  VEC: 16-byte cp.async pieces and one arrival on `full` when they land;
+// else plain loads and stores, then the arrival.
+template <typename T, int N, bool VEC>
+__device__ __forceinline__ void k4_fill_seq(unsigned char* stage, const T* u, const T* dt,
+                                            size_t row0, int steps, int c0, int di,
+                                            unsigned long long* full) {
+  using G = K4<T, N>;
+  T* dst[2] = {reinterpret_cast<T*>(stage), reinterpret_cast<T*>(stage + G::SEQ)};
+  const T* src[2] = {u, dt};
+  if constexpr (VEC) {
+    constexpr int E = 16 / sizeof(T), PPR = CB / E;        // elements a piece, pieces a row
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+#pragma unroll
+      for (int r = 0; r < G::TS * PPR / G::NT; ++r) {
+        const int i = r * G::NT + threadIdx.x, t = i / PPR, ce = i % PPR * E;
+        const bool ok = t < steps && c0 + ce < di;
+        cp16(dst[k] + t * CB + ce, ok ? src[k] + (row0 + t) * di + c0 + ce : src[k], ok);
+      }
+    cp_arrive(full);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+#pragma unroll 1
+      for (int i = threadIdx.x; i < G::TS * CB; i += G::NT) {
+        const int t = i / CB, cc = c0 + i % CB;
+        dst[k][i] = t < steps && cc < di ? src[k][(row0 + t) * di + cc] : from_f<T>(0.f);
+      }
+    mbar_arrive(full);
+  }
+}
+
+// This thread's share of a tile's B_t and C_t: EPT values of one step row (zeros past
+// steps), held as raw 32-bit words from a tile ahead until k4_store_bc converts them, so
+// that nothing waits on the load before then.
+template <typename T, int N, bool VEC>
+__device__ __forceinline__ void k4_load_bc(unsigned (&w)[K4<T, N>::BCW], const T* Bm,
+                                           const T* Cm, size_t row0, int steps) {
+  using G = K4<T, N>;
+  constexpr int BCW = G::BCW;
+  const int f = threadIdx.x * G::EPT, off = f % (G::TS * N);
+  const T* src = (f < G::TS * N ? Bm : Cm) + row0 * N + off;
+  if (off / N >= steps) {
+#pragma unroll
+    for (int i = 0; i < BCW; ++i) w[i] = 0u;             // +0 in either type
+  } else if constexpr (VEC && BCW == 4) {
+    const uint4 r = *reinterpret_cast<const uint4*>(src);
+    w[0] = r.x; w[1] = r.y; w[2] = r.z; w[3] = r.w;
+  } else if constexpr (VEC && BCW == 2) {
+    const uint2 r = *reinterpret_cast<const uint2*>(src);
+    w[0] = r.x; w[1] = r.y;
+  } else if constexpr (VEC || sizeof(T) == 4) {
+#pragma unroll
+    for (int i = 0; i < BCW; ++i) w[i] = reinterpret_cast<const unsigned*>(src)[i];
+  } else {
+    const unsigned short* p = reinterpret_cast<const unsigned short*>(src);
+#pragma unroll
+    for (int i = 0; i < BCW; ++i) w[i] = p[2 * i] | (unsigned)p[2 * i + 1] << 16;
+  }
+}
+
+// Value e of a share as fp32 (a bf16 is the high half of its fp32).
+template <typename T>
+__device__ __forceinline__ float share_f(const unsigned* w, int e) {
+  if constexpr (sizeof(T) == 4) return __uint_as_float(w[e]);
+  else return __uint_as_float(e % 2 ? w[e / 2] & 0xffff0000u : w[e / 2] << 16);
+}
+
+template <typename T, int N>
+__device__ __forceinline__ void k4_store_bc(unsigned char* stage,
+                                            const unsigned (&w)[K4<T, N>::BCW]) {
+  using G = K4<T, N>;
+  float x[G::EPT];
+#pragma unroll
+  for (int e = 0; e < G::EPT; ++e) x[e] = share_f<T>(w, e);
+  st_f<G::EPT>(reinterpret_cast<float*>(stage + 2 * G::SEQ) + threadIdx.x * G::EPT, x);
+}
+
+// HS steps of K4 from tile row tb (global step tt): each step's state update and this
+// lane's partial of y; then the HS steps' sums over the channel's L lanes, lane q taking
+// steps q + L c into the warp's y tile.  The state is saved to `si` before the step
+// `next_si` names (-1 once no chunk of the S steps is left); with EACH a chunk may start
+// at any of the HS steps, else only at the first.
+template <typename T, int N, bool EACH>
+__device__ __forceinline__ void k4_steps(float (&h)[K4<T, N>::SPL],
+                                         const float (&a)[K4<T, N>::SPL], float ddq,
+                                         const unsigned char* stage, T* y_w, int tb, int tt,
+                                         int S, int chunk, int& next_si, float*& si,
+                                         size_t si_step, bool live, int cl, int clw, int q) {
+  using G = K4<T, N>;
+  constexpr int L = G::L, SPL = G::SPL, HS = G::HS, TS = G::TS;
+  const T* u_s = reinterpret_cast<const T*>(stage);
+  const T* dt_s = u_s + TS * CB;
+  const float* b_s = reinterpret_cast<const float*>(stage + 2 * G::SEQ) + SPL * q;
+  const float* c_s = b_s + TS * N;
+  float acc[L][HS / L];                  // item s % L, value s / L: step tb + s
+#pragma unroll
+  for (int s = 0; s < HS; ++s) {
+    const int t = tb + s;
+    if ((EACH || s == 0) && tt + s == next_si) {   // this chunk's initial state
+      if (live) st_f<SPL>(si, h);
+      si += si_step;
+      next_si = next_si < S - chunk ? next_si + chunk : -1;
+    }
+    const float ut = to_f(u_s[t * CB + cl]), dtt = to_f(dt_s[t * CB + cl]);
+    const float dtl = dtt * LOG2E, x = dtt * ut;
+    float bn[SPL], cn[SPL];
+    ld_f<SPL>(b_s + t * N, bn);
+    ld_f<SPL>(c_s + t * N, cn);
+    float p = ddq * ut;
+#pragma unroll
+    for (int j = 0; j < SPL; ++j) {
+      h[j] = fmaf(h[j], ex2(dtl * a[j]), x * bn[j]);
+      p = fmaf(h[j], cn[j], p);
+    }
+    acc[s % L][s / L] = p;
+  }
+  group_transpose_sum<L, HS / L>(acc, q);
+#pragma unroll
+  for (int c = 0; c < HS / L; ++c) y_w[(tb + q + L * c) * G::CPW + clw] = from_f<T>(acc[0][c]);
+}
+
+// Rows [0, steps) of a warp's y tile (TS, CPW) into y (row stride di) from its first
+// channel on; di_w of the warp's channels are live.  VEC: pieces of up to 16 bytes.
+template <typename T, int N, bool VEC>
+__device__ __forceinline__ void k4_write_y(T* y_g, const T* y_w, int steps, int di_w, int di,
+                                           int lane) {
+  constexpr int CPW = K4<T, N>::CPW;
+  if constexpr (VEC) {
+    constexpr int RB = CPW * sizeof(T), W = RB < 16 ? RB : 16, PPR = RB / W;
+    constexpr int EW = W / sizeof(T);    // elements a piece
+#pragma unroll 1
+    for (int i = lane; i < steps * PPR; i += 32) {
+      const int t = i / PPR, e = i % PPR * EW;
+      if (e < di_w) copy_raw<W>(y_g + (size_t)t * di + e, y_w + t * CPW + e);
+    }
+  } else {
+#pragma unroll 1
+    for (int i = lane; i < steps * CPW; i += 32) {
+      const int t = i / CPW, e = i % CPW;
+      if (e < di_w) y_g[(size_t)t * di + e] = y_w[i];
+    }
+  }
+}
+
+// K4.  Grid (channel blocks, B), K4<T, N>::NT threads: thread = (channel, lane of it).
+// Each tile: issue the copies of the tile NS - 1 ahead (once every warp has released
+// its stage), wait for this tile's stage, walk it HS steps at a time, release the stage,
+// store the B_t/C_t share of the tile ahead, write the warp's y rows out.
+template <typename T, int N, bool VEC>
+__global__ void __launch_bounds__(K4<T, N>::NT, 1) fwd_kernel(
+    const T* __restrict__ u, const T* __restrict__ dt, const T* __restrict__ Bm,
+    const T* __restrict__ Cm, const float* __restrict__ A, const float* __restrict__ D,
+    T* __restrict__ y, float* __restrict__ h_init, int S, int di, int chunk, int n_chunks) {
+  using G = K4<T, N>;
+  constexpr int L = G::L, SPL = G::SPL, TS = G::TS, NS = G::NS, CPW = G::CPW;
+  extern __shared__ float4 smem4[];
+  unsigned char* stages = reinterpret_cast<unsigned char*>(smem4);
+  T* y_s = reinterpret_cast<T*>(stages + NS * G::STAGE);
+  unsigned long long* full = reinterpret_cast<unsigned long long*>(stages + NS * G::STAGE + G::YT);
+  unsigned long long* empty = full + NS;
+
+  const int b = blockIdx.y, c0 = blockIdx.x * CB;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int cl = threadIdx.x / L, q = threadIdx.x % L, clw = lane / L, c = c0 + cl;
+  const bool live = c < di;
+  float a[SPL], h[SPL];
+#pragma unroll
+  for (int j = 0; j < SPL; ++j) {
+    a[j] = live ? A[(size_t)c * N + SPL * q + j] : 0.f;
+    h[j] = 0.f;
+  }
+  const float ddq = live && q == 0 ? D[c] : 0.f;      // lane 0 of a channel adds D u
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full + s, 2 * G::NT);     // each thread: its u/dt copies, its B/C share
+      mbar_init(empty + s, G::NW);        // each warp, done with the stage
+    }
+  }
+  __syncthreads();
+
+  const size_t row = (size_t)b * S;
+  const int n_tiles = (S + TS - 1) / TS;
+  T* y_w = y_s + warp * TS * CPW;
+  T* y_g = y + row * di + c0 + warp * CPW;
+  const int di_w = di - (c0 + warp * CPW);
+  float* si = h_init + ((size_t)b * n_chunks * di + c) * N + SPL * q;
+  const size_t si_step = (size_t)di * N;
+  int next_si = 0;                        // the step that starts the next chunk
+  const bool each = chunk % G::HS != 0;
+
+  unsigned bc[G::BCW];
+  for (int n = 0; n < NS - 1 && n < n_tiles; ++n) {
+    unsigned char* stage = stages + n * G::STAGE;
+    const int t0 = n * TS, steps = min(TS, S - t0);
+    k4_fill_seq<T, N, VEC>(stage, u, dt, row + t0, steps, c0, di, full + n);
+    k4_load_bc<T, N, VEC>(bc, Bm, Cm, row + t0, steps);
+    k4_store_bc<T, N>(stage, bc);
+    mbar_arrive(full + n);
+  }
+  for (int n = 0; n < n_tiles; ++n) {
+    const int s = n % NS, nf = n + NS - 1, sf = nf % NS;
+    const bool fetch = nf < n_tiles;
+    unsigned char* fstage = stages + sf * G::STAGE;
+    if (fetch) {
+      if (n > 0) mbar_wait(empty + sf, ((n - 1) / NS) & 1);   // tile n - 1 is done
+      const int f0 = nf * TS, fsteps = min(TS, S - f0);
+      k4_fill_seq<T, N, VEC>(fstage, u, dt, row + f0, fsteps, c0, di, full + sf);
+      k4_load_bc<T, N, VEC>(bc, Bm, Cm, row + f0, fsteps);
+    }
+    const int t0 = n * TS, steps = min(TS, S - t0);
+    const unsigned char* stage = stages + s * G::STAGE;
+    mbar_wait(full + s, (n / NS) & 1);   // tile n is in stage s
+    if (each) {
+      for (int tb = 0; tb < steps; tb += G::HS)
+        k4_steps<T, N, true>(h, a, ddq, stage, y_w, tb, t0 + tb, S, chunk, next_si, si,
+                             si_step, live, cl, clw, q);
+    } else {
+      for (int tb = 0; tb < steps; tb += G::HS)
+        k4_steps<T, N, false>(h, a, ddq, stage, y_w, tb, t0 + tb, S, chunk, next_si, si,
+                              si_step, live, cl, clw, q);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + s);   // this warp is done with stage s
+    if (fetch) {
+      k4_store_bc<T, N>(fstage, bc);
+      mbar_arrive(full + sf);
+    }
+    k4_write_y<T, N, VEC>(y_g + (size_t)t0 * di, y_w, steps, di_w, di, lane);
+    __syncwarp();                            // the y tile is read before the next tile's y
   }
 }
 
@@ -400,26 +668,37 @@ __global__ void __launch_bounds__(K5_THREADS, 1) bwd_kernel(
   }
 }
 
-size_t fwd_smem(int N) { return sizeof(float) * (2 * TS * CB + 2 * TS * N); }
-
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <typename T, int N>
-cudaError_t launch_fwd(const void* u, const void* dt, const void* Bm, const void* Cm,
-                       const void* A, const void* D, void* y, void* h_init, int Bsz, int S,
-                       int di, int chunk, cudaStream_t stream) {
-  const size_t smem = fwd_smem(N);
-  cudaError_t e = allow_smem(fwd_kernel<T, N>, smem);
+template <typename T, int N, bool VEC>
+cudaError_t launch_fwd_as(const void* u, const void* dt, const void* Bm, const void* Cm,
+                          const void* A, const void* D, void* y, void* h_init, int Bsz, int S,
+                          int di, int chunk, cudaStream_t stream) {
+  constexpr size_t smem = K4<T, N>::BYTES;
+  cudaError_t e = allow_smem(fwd_kernel<T, N, VEC>, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((di + CB - 1) / CB, Bsz);
-  fwd_kernel<T, N><<<grid, CB, smem, stream>>>(
+  fwd_kernel<T, N, VEC><<<grid, K4<T, N>::NT, smem, stream>>>(
       static_cast<const T*>(u), static_cast<const T*>(dt), static_cast<const T*>(Bm),
       static_cast<const T*>(Cm), static_cast<const float*>(A), static_cast<const float*>(D),
       static_cast<T*>(y), static_cast<float*>(h_init), S, di, chunk, (S + chunk - 1) / chunk);
   return cudaGetLastError();
+}
+
+// K4 takes any chunk >= 1 (cudaErrorInvalidValue otherwise); its 16-byte copies and stores
+// need di * sizeof(T) a multiple of 16 and 16-byte aligned pointers.
+template <typename T, int N>
+cudaError_t launch_fwd(const void* u, const void* dt, const void* Bm, const void* Cm,
+                       const void* A, const void* D, void* y, void* h_init, int Bsz, int S,
+                       int di, int chunk, cudaStream_t stream) {
+  if (chunk < 1) return cudaErrorInvalidValue;
+  const bool vec = (di * sizeof(T)) % 16 == 0 &&
+                   (((size_t)u | (size_t)dt | (size_t)Bm | (size_t)Cm | (size_t)y) % 16) == 0;
+  return (vec ? launch_fwd_as<T, N, true> : launch_fwd_as<T, N, false>)(
+      u, dt, Bm, Cm, A, D, y, h_init, Bsz, S, di, chunk, stream);
 }
 
 template <typename T, int N, bool VEC>

@@ -24,11 +24,13 @@ same chunked algorithm as sequential torch loops.  The entry point
 ``mamba_scan_bsd`` routes once: the kernels for a CUDA tensor, the plain
 versions for a CPU tensor.
 
-The chunk is internal (no output depends on it): ``CHUNK`` steps.  K5 keeps
-a chunk's replay history in registers, unrolled over ``K5_CHUNK`` steps, so
-it takes chunks of at most that many.  The plain versions take inputs padded
-to a chunk multiple (dt = 0: a padded step is the identity); the CUDA kernels
-load that value past the end.
+The chunk is internal (no output depends on it): ``CHUNK`` steps.  K4 takes
+any chunk (it walks the sequence in tiles of ``K4_TILE`` steps in bf16, half
+that in fp32, and saves the state where a countdown names a chunk's start).
+K5 keeps a chunk's replay history in registers, unrolled over ``K5_CHUNK``
+steps, so it takes chunks of at most that many.  The plain versions take
+inputs padded to a chunk multiple (dt = 0: a padded step is the identity);
+the CUDA kernels load that value past the end.
 """
 from __future__ import annotations
 
@@ -42,6 +44,7 @@ from repro_torch.kernels.blocking import MAMBA_PAD_DT, pad_axis, pick_block
 
 CHUNK = 16
 K5_CHUNK = 16        # the longest chunk K5 takes (K5_CH in the .cu)
+K4_TILE = 64         # the steps K4 copies in at a time in bf16, half in fp32 (K4<T, N>::TS)
 C_BLK = 128          # channels per CUDA block (CB in the .cu)
 D_STATE = 16         # the state width the CUDA kernels take
 

@@ -330,3 +330,75 @@ def test_cuda_mamba_backward_is_deterministic(dtype):
                 for _ in range(2)]
         for a, b in zip(*runs):
             assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_mamba_forward_is_deterministic(dtype):
+    """K4 run twice on the same inputs gives bitwise equal y and h_init: no
+    atomics, every sum in a fixed order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    for (B, S, di) in MAMBA_CASES:
+        u, dts, Bt, Ct, A, D = _mamba_inputs(gen, dt, B, S, di)
+        chunk = min(mamba_scan.CHUNK, S)
+        runs = [mamba_scan.scan_fwd(u, dts, Bt, Ct, A, D, chunk) for _ in range(2)]
+        for a, b in zip(*runs):
+            assert torch.equal(a, b)
+
+
+# (S, chunk, di, offset) of K4's tile edges: S one under and one over a tile
+# (K4_TILE steps in bf16, half in fp32) and past two, chunks 1, 3 and 8 (not a
+# multiple of the 16 steps whose sums K4 takes together, so a chunk starts
+# inside such a group and an identity step past S must start none) and 16,
+# di 300 and 36 (not whole 16-byte rows: the plain-load path), S 1 and 5, and
+# u, dt one element past a 16-byte aligned allocation (the plain-load path)
+K4_EDGES = [(mamba_scan.K4_TILE - 1, 16, 256, False), (mamba_scan.K4_TILE + 1, 16, 128, False),
+            (mamba_scan.K4_TILE + 1, 1, 256, False), (mamba_scan.K4_TILE - 1, 3, 300, False),
+            (2 * mamba_scan.K4_TILE + 1, 3, 256, True), (2 * mamba_scan.K4_TILE + 1, 8, 128, False),
+            (2 * mamba_scan.K4_TILE + 1, 16, 300, True), (5, 3, 36, False), (1, 1, 40, False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_mamba_forward_states_match_plain(dtype):
+    """K4's h_init at chunks 1, 3, 8 and 16 and at S one step on either side
+    of a tile matches ``fwd_plain`` at fp32's tolerance in both types (both
+    compute the state in fp32), y at the type's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    for (S, chunk, di, offset) in K4_EDGES:
+        B = 2
+        u, dts, Bt, Ct, A, D = _mamba_inputs(gen, dt, B, S, di)
+        ku, kdt = ((_offset_leaf(t)[1].detach() for t in (u, dts)) if offset else (u, dts))
+        y, h_init = mamba_scan.scan_fwd(ku, kdt, Bt, Ct, A, D, chunk)
+        S_p = -(-S // chunk) * chunk
+        pad = lambda t: torch.nn.functional.pad(t, (0, 0, 0, S_p - S))  # noqa: E731
+        y_p, i_p = mamba_scan.fwd_plain(pad(u), pad(dts), pad(Bt), pad(Ct), A, D, chunk)
+        assert h_init.shape == i_p.shape == (B, -(-S // chunk), di, 16)
+        _assert_close([[h_init], [i_p]], torch.float32)
+        _assert_close([[y], [y_p[:, :S]]], dt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_mamba_forward_states_do_not_depend_on_chunk(dtype):
+    """K4's h_init at chunk 1, taken every 16th step, is its h_init at chunk
+    16 bitwise, and y is the same at both: the state does not depend on the
+    chunk."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for (S, _, di, offset) in K4_EDGES:
+        u, dts, Bt, Ct, A, D = _mamba_inputs(gen, dt, 2, S, di)
+        if offset:
+            u, dts = (_offset_leaf(t)[1].detach() for t in (u, dts))
+        y1, h1 = mamba_scan.scan_fwd(u, dts, Bt, Ct, A, D, 1)
+        y16, h16 = mamba_scan.scan_fwd(u, dts, Bt, Ct, A, D, 16)
+        assert torch.equal(h1[:, ::16], h16)
+        assert torch.equal(y1, y16)

@@ -96,3 +96,19 @@ def test_port_doctests(module):
     import importlib
     res = doctest.testmod(importlib.import_module(module))
     assert res.attempted > 0 and res.failed == 0
+
+
+def test_kernel_build_name_covers_shared_headers(tmp_path, monkeypatch):
+    """Editing a shared ``csrc/*.cuh`` header renames (so rebuilds) every
+    library that includes it; an unchanged tree keeps its names."""
+    from repro_torch.kernels import build
+    for name in ("mamba_scan", "rwkv6_scan"):
+        (tmp_path / f"{name}.cu").write_text(f'#include "scan_common.cuh"\n// {name}\n')
+    header = tmp_path / "scan_common.cuh"
+    header.write_text("// v1\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    before = {n: build._target(n)[0] for n in ("mamba_scan", "rwkv6_scan")}
+    assert before == {n: build._target(n)[0] for n in before}
+    header.write_text("// v2\n")
+    after = {n: build._target(n)[0] for n in before}
+    assert all(before[n] != after[n] for n in before)

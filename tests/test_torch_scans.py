@@ -202,6 +202,18 @@ def test_mamba_outputs_do_not_depend_on_chunk(S):
             _close(a.numpy(), b.numpy(), 1e-5)
 
 
+def test_mamba_plain_h_init_does_not_depend_on_chunk():
+    """The chunk-initial states at chunk 1, taken every 16th step, are those
+    at chunk 16 bitwise: the state itself does not depend on the chunk (K4
+    saves it where a countdown names a chunk's start)."""
+    ins = [_t(x) for x in _mamba_inputs(11, 2, 48, 12, 16)]
+    y1, h1 = mamba_scan.fwd_plain(*ins, 1)
+    y16, h16 = mamba_scan.fwd_plain(*ins, 16)
+    assert h1.shape == (2, 48, 12, 16) and h16.shape == (2, 3, 12, 16)
+    assert torch.equal(h1[:, ::16], h16)
+    assert torch.equal(y1, y16)
+
+
 # --------------------------------------------------------------------------- #
 # Wrappers, padding, work counts
 # --------------------------------------------------------------------------- #
@@ -286,3 +298,17 @@ def test_scan_work_counts_match_reference():
     n = 2 * 64 * 4096 * 64
     assert bench.rwkv6_fwd_bytes(2, 64, 4096, 64, 2) == 2 * 4 * n + 4 * (
         n + 64 * 64 + 2 * 64 * 64 * 64)
+
+
+@pytest.mark.parametrize("S,n_chunks", [(4096, 256), (4097, 257)])
+def test_mamba_fwd_floor_counts_match_hand_counts(S, n_chunks):
+    """K4's other floors at Jamba's scan shape (B 2, di 8192, N 16, chunk 16):
+    the fp32 chunk-initial states it writes (4 bytes × B × n_chunks × di × N,
+    a ragged tail starting a chunk of its own) and one exponential a state
+    element and step."""
+    assert bench.mamba_fwd_h_init_bytes(2, S, 8192, 16, 16) == 4 * 2 * n_chunks * 8192 * 16
+    assert bench.mamba_fwd_exps(2, S, 8192, 16) == 2 * S * 8192 * 16
+    # the byte bound stays what K4's own inputs and output take: u, dt, y and
+    # B_t, C_t in bf16, A and D in fp32
+    assert bench.mamba_fwd_bytes(2, S, 8192, 16, 2) == 2 * (3 * 2 * S * 8192 + 2 * 2 * S * 16) \
+        + 4 * (8192 * 16 + 8192)
