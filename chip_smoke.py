@@ -9,9 +9,10 @@ Phases, each reported on its own lines:
                 ``src/repro_torch/kernels/csrc`` side by side (one ``nvcc`` each)
                 and prints the ``-Xptxas -v`` register / shared-memory lines;
   3. compare  — each kernel against its plain PyTorch version on the card:
-                K1 forward and K2/K3 gradients at the six attention shapes
+                K1 forward and K2/K3 gradients at the seven attention shapes
                 (bf16: InternVL2-2B's encoder and LLM, Jamba's, LLaVA-OV's SigLIP
-                at D 72 and Qwen2.5 at G 7, a gemma-2b-shaped D 256) and at small
+                at D 72 and Qwen2.5 at G 7, the quickstart's packed 8192-token
+                InternLM2-1.8B row of phase 10, a gemma-2b-shaped D 256) and at small
                 edge cases in bf16 (K1–K3 on the tensor cores) and in fp32 (K1–K3
                 on the CUDA cores) at head dims 24, 32, 64, 72, 80, 128 and 256:
                 prime length, a window spanning tiles, G = 4, 7 and 8, rows masked
@@ -58,7 +59,15 @@ Phases, each reported on its own lines:
                 the step and the idle share;
   9. ssm paths— at full width and 2 layers, each decoder with the scan
                 kernels against the naive scans (Python loops over time);
- 10. summary  — one JSON line of the kernels, the card line, then the result.
+ 10. plan     — the planner (numpy, host seconds): InternVL2-2B's plan theta* on 8
+                and 64 H100s, priced by the analytic H100 spec; then the
+                quickstart path (``repro_torch.quickstart``): InternLM2-1.8B at full
+                width and depth, profiled and planned, the Online Microbatch
+                Scheduler feeding packed (4, 1, 8192) rows to 3 AdamW steps (loss,
+                seconds, schedule, predicted step, truncation, peak memory; the
+                groups must cover each step's items once; K1-K3 launch counts, all
+                on the tensor cores), one more step under ``torch.profiler``;
+ 11. summary  — one JSON line of the kernels, the card line, then the result.
 
 Counts are set to 0 just before a training path and read just after it.
 Any failed check raises and the script exits non-zero.
@@ -166,8 +175,12 @@ def main() -> int:
     sys.path.insert(0, os.path.join(HERE, "src"))
     import numpy as np
 
+    from repro_torch import quickstart
     from repro_torch.common.pytree import global_norm, tree_leaves, tree_paths
     from repro_torch.configs import internvl2_2b, jamba_v0_1_52b, llava_ov_qwen7b, rwkv6_7b
+    from repro_torch.core.engine import DFLOPEngine
+    from repro_torch.core.optimizer.space import ClusterSpec
+    from repro_torch.core.profiling.analytic import H100, AnalyticBackend
     from repro_torch.data.packing import pack_items
     from repro_torch.data.synthetic import MixedDataset
     from repro_torch.kernels import bench, build, mamba_scan, rwkv6_scan
@@ -273,6 +286,25 @@ def main() -> int:
     dec_batches = {"rwkv6-7b": [decoder_batch(rwkv_cfg, s) for s in range(3)],
                    "jamba": [decoder_batch(jamba_cfg, 10 + s) for s in range(3)]}
 
+    # the quickstart path of phase 10 (numpy): its first batch, drawn the same
+    # way there; the microbatch with the most segments gives the attention
+    # shape of that path timed in phase 4
+    qsz = quickstart.CARD
+
+    def quickstart_loader():
+        qds = MixedDataset("mixed", seed=0, tokens_per_media_item=qsz.tokens_per_media_item)
+        q_eng, q_res, q_prof_s, q_plan_s = quickstart.plan(qsz, qds)
+        return quickstart.make_loader(qsz, q_eng, qds), q_res, q_prof_s, q_plan_s
+
+    q_loader = quickstart_loader()[0]
+    q_first = next(iter(q_loader))["segment_ids"][:, 0]                   # (N_mb, S)
+    q_groups = q_loader.last_schedule.groups
+    q_seg = q_first[int(np.argmax([len(np.unique(r)) for r in q_first]))]
+    del q_loader
+    log(f"[compare] quickstart row (the first batch's microbatch with the most segments): "
+        f"tokens by segment id {dict(zip(*(a.tolist() for a in np.unique(q_seg, return_counts=True))))} "
+        f"(0 = padding)")
+
     enc, llm_cfg = internvl2_2b.ENCODER, internvl2_2b.LLM
     S_ENC, S_LLM = 4096, 256 + 1024
     llava_cfg = dataclasses.replace(llava_ov_qwen7b.CFG, llm=dataclasses.replace(
@@ -303,6 +335,12 @@ def main() -> int:
         "qwen": dict(B=2, KH=qwen.n_kv_heads, G=qwen.n_heads // qwen.n_kv_heads,
                      S=S_QWEN, D=qwen.head_dim, causal=True,
                      seg=seg_rows(S_QWEN, [LLAVA_POOLED + 700, S_QWEN])),
+        # the quickstart's InternLM2-1.8B rows: one packed 8192-token row a
+        # microbatch (segments 1..n, 0 = padding)
+        "quickstart": dict(B=1, KH=llm_cfg.n_kv_heads,
+                           G=llm_cfg.n_heads // llm_cfg.n_kv_heads, S=qsz.token_budget,
+                           D=llm_cfg.head_dim, causal=True,
+                           seg=torch.as_tensor(q_seg)[None]),
         # gemma-2b-shaped (D 256): timed only
         "gemma": dict(B=2, S=4096, causal=True, seg=seg_rows(4096, [4096, 4096]), **GEMMA),
     }
@@ -1044,11 +1082,6 @@ def main() -> int:
     if any(dec_counts[key] == 0 for key in on_path):
         raise SystemExit(f"a kernel was not launched on a decoder path: {dec_counts}")
     launches.update({key: dec_counts[key] for key in on_path})
-    # the gemma-shaped attention is timed (phase 4); these are its launches on
-    # the four training paths
-    launches.update({(kn, "gemma"): n for kn, n in gemma_launches.items()})
-    log(f"[train] gemma-shaped (bf16, D {GEMMA['D']}, causal) launches over every training "
-        f"phase: {gemma_launches}")
 
     # 9. scan kernels vs naive scans (full width, 2 layers) ---------------- #
     for dec, cfg2 in (("rwkv6-7b", dataclasses.replace(rwkv_cfg, n_layers=2)),
@@ -1064,7 +1097,90 @@ def main() -> int:
         del params2, mb
         torch.cuda.empty_cache()
 
-    # 10. summary ---------------------------------------------------------- #
+    # 10. plan: the planner, then the quickstart's scheduled steps -------- #
+    # (a) InternVL2-2B's plan (encoder + LLM) on 8 and 64 H100s, numpy on the
+    # host, priced by the analytic H100 spec
+    for n_cards in (8, 64):
+        cluster = ClusterSpec(n_chips=n_cards, chips_per_node=8, mem_bytes=H100.mem_bytes,
+                              name="h100-sxm")
+        p_eng = DFLOPEngine(llm_cfg=internvl2_2b.LLM, enc_cfg=internvl2_2b.ENCODER,
+                            e_seq_len=internvl2_2b.PATCHES_PER_IMAGE, cluster=cluster,
+                            tokens_per_media_item=internvl2_2b.LLM_TOKENS_PER_IMAGE,
+                            backend=AnalyticBackend(H100))
+        t0 = time.perf_counter()
+        p_eng.profile(MixedDataset("mixed", seed=0,
+                                   tokens_per_media_item=internvl2_2b.LLM_TOKENS_PER_IMAGE),
+                      n_samples=2048)
+        t1 = time.perf_counter()
+        res = p_eng.plan(gbs=64)
+        t2 = time.perf_counter()
+        if not (res.found and math.isfinite(res.makespan)):
+            raise SystemExit(f"plan: no feasible plan for InternVL2-2B on {n_cards} cards")
+        log(f"[plan] InternVL2-2B on {n_cards} x {cluster.name} (gbs 64): theta* "
+            f"{res.plan.as_tuple()}, predicted makespan {res.makespan:.6f} s, "
+            f"{res.n_configs} configurations searched ({res.n_feasible} feasible); host: "
+            f"profile {t1 - t0:.3f} s, plan {t2 - t1:.3f} s")
+
+    # (b) quickstart: InternLM2-1.8B at full width and depth, its engine's plan,
+    # the Online Microbatch Scheduler feeding packed (N_mb, 1, 8192) rows to
+    # make_train_step; three steps counted, a fourth under the profiler
+    loader, res, prof_s, plan_s = quickstart_loader()
+    log(f"[plan] {qsz.cfg.name} (LLM only) on {quickstart.CLUSTER.n_chips} x "
+        f"{quickstart.CLUSTER.name} (gbs {quickstart.PLAN_GBS}): theta* "
+        f"{res.plan.as_tuple()}, predicted makespan {res.makespan:.6f} s, "
+        f"{res.n_configs} configurations searched; host: profile {prof_s:.3f} s, plan "
+        f"{plan_s:.3f} s; runs {quickstart.LOCAL_PLAN.as_tuple()} on this card, "
+        f"{qsz.gbs} items a step into rows of {qsz.token_budget} tokens")
+    reset_counts()
+    steps_q = quickstart.train(qsz, loader, steps=4, device=dev, lr=qsz.lr)
+    q_seconds = []
+    for i in range(3):
+        params, r = next(steps_q)
+        sc = r["schedule"]
+        covered = sorted(j for g in sc.groups for j in g)
+        # the items' predicted durations summed: the price of running the
+        # microbatches in turn on one card (step_makespan prices every
+        # microbatch at the slowest one, cmax)
+        serial = float(sc.e_dur.sum() + sc.l_dur.sum())
+        log(f"[plan] step {i}: loss {r['loss']:.5f}, {r['seconds']:.3f} s (loader "
+            f"{r['load_seconds']:.3f} s), schedule: solver {sc.solver}, groups "
+            f"{[len(g) for g in sc.groups]}, imbalance {sc.imbalance:.4f}, cmax "
+            f"{sc.cmax:.4f} s, predicted step {sc.step_makespan:.4f} s (measured / "
+            f"predicted {r['seconds'] / sc.step_makespan:.3f}), items' predicted sum "
+            f"{serial:.4f} s (measured / sum {r['seconds'] / serial:.3f}), tokens in "
+            f"segments per row {r['row_tokens']} of {qsz.token_budget}, truncated "
+            f"{r['truncated']} tokens, peak {r['peak_gib']:.2f} GiB")
+        if i == 0:
+            log(f"[plan] step 0's groups are those of the batch whose segments phase 4 "
+                f"timed: {sc.groups == q_groups}")
+        if not math.isfinite(r["loss"]):
+            raise SystemExit("plan: non-finite loss")
+        if covered != list(range(qsz.gbs)):
+            raise SystemExit(f"plan: step {i}'s groups do not cover its items once: "
+                             f"{sc.groups}")
+        q_seconds.append(r["seconds"])
+    count_gemma()
+    n_q = {kn: pfa.LAUNCHES[(COUNTER[kn], pfa.route_of(torch.bfloat16), llm_cfg.head_dim,
+                             True)] for kn in COUNTER}
+    log(f"[plan] launches over 3 steps (D {llm_cfg.head_dim}, causal, S "
+        f"{qsz.token_budget}), by route: {dict(pfa.LAUNCHES)}; K1 {n_q['K1']}, K2 "
+        f"{n_q['K2']}, K3 {n_q['K3']} (per step {n_q['K1'] / 3:g}/{n_q['K2'] / 3:g}/"
+        f"{n_q['K3'] / 3:g})")
+    if min(n_q.values()) == 0:
+        raise SystemExit(f"plan: a kernel was not launched on the quickstart path: {n_q}")
+    check_routes("plan")
+    launches.update({(kn, "quickstart"): n for kn, n in n_q.items()})
+    profile_step(lambda: next(steps_q), qsz.cfg.name, ("quickstart",),
+                 sum(q_seconds[1:]) / len(q_seconds[1:]))
+    del params, steps_q, loader
+    torch.cuda.empty_cache()
+    # the gemma-shaped attention is timed (phase 4); these are its launches on
+    # the five training paths
+    launches.update({(kn, "gemma"): n for kn, n in gemma_launches.items()})
+    log(f"[train] gemma-shaped (bf16, D {GEMMA['D']}, causal) launches over every training "
+        f"phase: {gemma_launches}")
+
+    # 11. summary ---------------------------------------------------------- #
     kernels = []
     for (kn, shape), r in timing.items():
         kernels.append({

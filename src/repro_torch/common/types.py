@@ -1,7 +1,8 @@
 """Configuration types of the port: the fields and properties of
-``ModelConfig`` / ``MLLMConfig`` that the training slice reads, with the same
-names and defaults as the reference, plus the device and dtype helpers that
-every entry point uses."""
+``ModelConfig`` / ``MLLMConfig`` that the training slice and the planner read
+(the parameter counts among them), with the same names and defaults as
+the reference, plus the device and dtype helpers that every entry point
+uses."""
 from __future__ import annotations
 
 import enum
@@ -84,6 +85,55 @@ class ModelConfig:
         period = a * b // math.gcd(a, b)
         return period if self.n_layers % period == 0 else self.n_layers
 
+    # -- parameter counting (exact, mirrors init) ----------------------- #
+    def param_count(self) -> int:
+        d = self.d_model
+        total = self.vocab_size * d                       # embed
+        if not self.tie_embeddings:
+            total += self.vocab_size * d                  # unembed
+        total += d                                        # final norm
+        for kind, ffn in zip(self.layer_kinds, self.ffn_kinds):
+            total += 2 * d                                # two norms
+            if kind == LayerKind.ATTENTION:
+                hd = self.head_dim
+                total += d * self.n_heads * hd            # wq
+                total += 2 * d * self.n_kv_heads * hd     # wk, wv
+                total += self.n_heads * hd * d            # wo
+            elif kind == LayerKind.MAMBA:
+                di = self.ssm_expand * d
+                total += d * 2 * di                       # in_proj
+                total += di * self.ssm_d_conv             # conv
+                total += di * (2 * self.ssm_d_state + 1)  # x_proj(B,C,dt) low-rank part
+                total += di + di                          # A_log (di x N folded), D  (approx: di*N)
+                total += di * self.ssm_d_state            # A_log actual
+                total += di * d                           # out_proj
+            elif kind == LayerKind.RWKV6:
+                h = d // self.rwkv_head_dim
+                total += 5 * d * d                        # r,k,v,g,o projections
+                total += 2 * d * 5 * 32                   # ddlerp lora a/b
+                total += 2 * d * 64                       # decay lora a/b
+                total += 5 * d + d + d + 2 * d            # mixes + decay_base
+                total += h * self.rwkv_head_dim           # time_first (u)
+                total += 2 * d * self.d_ff + d * d        # channel mix k,v,r
+                continue                                  # rwkv has no extra FFN
+            if ffn == FFNKind.MOE:
+                n_mat = 3 if self.activation in ("swiglu", "geglu") else 2
+                total += self.n_experts * n_mat * d * self.d_ff
+                total += d * self.n_experts               # router
+            else:
+                n_mat = 3 if self.activation in ("swiglu", "geglu") else 2
+                total += n_mat * d * self.d_ff
+        return total
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top_k experts only)."""
+        if self.n_experts == 0:
+            return self.param_count()
+        d, n_mat = self.d_model, 3 if self.activation in ("swiglu", "geglu") else 2
+        moe_layers = sum(1 for f in self.ffn_kinds if f == FFNKind.MOE)
+        inactive = moe_layers * (self.n_experts - self.top_k) * n_mat * d * self.d_ff
+        return self.param_count() - inactive
+
 
 @dataclass(frozen=True)
 class ModalityStub:
@@ -108,6 +158,15 @@ class MLLMConfig:
     @property
     def vocab_size(self) -> int:
         return self.llm.vocab_size
+
+    def param_count(self) -> int:
+        total = self.encoder.param_count() + self.llm.param_count()
+        de, dl = self.encoder.d_model, self.llm.d_model
+        if self.connector_hidden:
+            total += de * self.connector_hidden + self.connector_hidden * dl
+        else:
+            total += de * dl
+        return total
 
 
 def torch_dtype(name: str) -> torch.dtype:

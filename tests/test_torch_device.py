@@ -11,6 +11,7 @@ import sys
 import pytest
 import torch
 
+from repro_torch import quickstart
 from repro_torch.common.types import resolve_device
 from repro_torch.configs import internvl2_2b, jamba_v0_1_52b, rwkv6_7b
 from repro_torch.convert import params_from_jax
@@ -28,7 +29,8 @@ def _no_card():
 
 @pytest.mark.parametrize("entry", ["mllm.init", "model.init", "as_tensors",
                                    "resolve_device", "model.init[rwkv6-7b]",
-                                   "model.init[jamba]", "params_from_jax"])
+                                   "model.init[jamba]", "params_from_jax",
+                                   "quickstart"])
 def test_default_device_without_card_raises(entry):
     _no_card()
     tiny = internvl2_2b.CFG
@@ -41,6 +43,7 @@ def test_default_device_without_card_raises(entry):
         "model.init[rwkv6-7b]": lambda: model.init(rwkv6_7b.CFG),
         "model.init[jamba]": lambda: model.init(jamba),
         "params_from_jax": lambda: params_from_jax({"blocks": {}}, rwkv6_7b.CFG),
+        "quickstart": lambda: quickstart.main([]),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         call()
