@@ -9,10 +9,11 @@ Phases, each reported on its own lines:
                 ``src/repro_torch/kernels/csrc`` side by side (one ``nvcc`` each)
                 and prints the ``-Xptxas -v`` register / shared-memory lines;
   3. compare  — each kernel against its plain PyTorch version on the card:
-                K1 forward and K2/K3 gradients at the seven attention shapes
+                K1 forward and K2/K3 gradients at the nine attention shapes
                 (bf16: InternVL2-2B's encoder and LLM, Jamba's, LLaVA-OV's SigLIP
                 at D 72 and Qwen2.5 at G 7, the quickstart's packed 8192-token
-                InternLM2-1.8B row of phase 10, a gemma-2b-shaped D 256) and at small
+                InternLM2-1.8B row of phase 10, a gemma-2b-shaped D 256; in fp32 the
+                100M MLLM's encoder and LLM of phase 11) and at small
                 edge cases in bf16 (K1–K3 on the tensor cores) and in fp32 (K1–K3
                 on the CUDA cores) at head dims 24, 32, 64, 72, 80, 128 and 256:
                 prime length, a window spanning tiles, G = 4, 7 and 8, rows masked
@@ -67,7 +68,22 @@ Phases, each reported on its own lines:
                 seconds, schedule, predicted step, truncation, peak memory; the
                 groups must cover each step's items once; K1-K3 launch counts, all
                 on the tensor cores), one more step under ``torch.profiler``;
- 11. summary  — one JSON line of the kernels, the card line, then the result.
+ 11. runtime  — the closed control loop (``repro_torch.runtime``) on the reference's
+                100M MLLM: ``bench_kernel`` times K1-K3 (fp32, at the quickstart's
+                InternLM2-1.8B attention) and K4-K7 (fp32, the reference's bench dims) over
+                S 1024-8192 through the kernels' entry points, ``normalize`` gives each
+                kernel's measured / analytic-H100 unit, ``seed_calibrator`` feeds a fresh
+                ``OnlineCalibrator``; then ``python -m repro_torch.train_mllm`` at
+                mllm-100m, full size (fp32: K1-K3 on the CUDA cores, all must): 24 steps
+                over a single-image -> video shift at step 6 with background re-planning, a
+                trace and a checkpoint (a shape-ks drift event and a finished re-plan
+                required; the trace must hold schedule, step, replan-search and drift
+                events; the checkpoint must restore bitwise), 12 steps with the lookahead
+                composer, 12 steps of random assignment; per step loss, seconds beside the
+                predicted cmax and step, whether a re-plan search was in flight; drift
+                events, re-plans, metrics, launches, peak; one more step of each under
+                ``torch.profiler``;
+ 12. summary  — one JSON line of the kernels, the card line, then the result.
 
 Counts are set to 0 just before a training path and read just after it.
 Any failed check raises and the script exits non-zero.
@@ -108,6 +124,10 @@ COUNTER = {"K1": "fwd", "K2": "bwd_dq", "K3": "bwd_dkv"}
 # Kernel-name fragments of K1-K3 in a profiler trace (the training paths run
 # in bf16: the tensor-core kernels)
 TRACE_NAME = {"K1": "fwd_tc_kernel", "K2": "bwd_dq_tc", "K3": "bwd_dkv_tc"}
+# The fp32 (CUDA-core) K1-K3 in a profiler trace, by name and tile width {t}
+# (fwd_kernel<D>; K4's fwd_kernel<T, N, VEC> does not match)
+FP32_TRACE = {"K1": r"\bfwd_kernel<{t}>", "K2": r"\bbwd_dq_kernel<{t}>",
+              "K3": r"\bbwd_dkv_kernel<{t}[,>]"}
 SCAN_NAME = {"K4": "mamba_fwd", "K5": "mamba_bwd", "K6": "wkv6_fwd",
              "K7": "wkv6_bwd"}
 # The bf16 scan kernels in a profiler trace, by name and leading template
@@ -176,6 +196,7 @@ def main() -> int:
     import numpy as np
 
     from repro_torch import quickstart
+    from repro_torch import train_mllm as m100_loop
     from repro_torch.common.pytree import global_norm, tree_leaves, tree_paths
     from repro_torch.configs import internvl2_2b, jamba_v0_1_52b, llava_ov_qwen7b, rwkv6_7b
     from repro_torch.core.engine import DFLOPEngine
@@ -256,6 +277,13 @@ def main() -> int:
         if not ok:
             raise SystemExit(f"kernel disagrees with its plain version: {cname}")
 
+    def path_dtype(sh):
+        """The type a path shape trains in: bf16 but for the fp32 mllm-100m."""
+        return sh.get("dtype", torch.bfloat16)
+
+    def dtype_tag(sh):
+        return "f32" if path_dtype(sh) == torch.float32 else "bf16"
+
     def seg_rows(S, lens):
         s = torch.zeros(len(lens), S, dtype=torch.int32)
         for i, n in enumerate(lens):
@@ -307,6 +335,16 @@ def main() -> int:
 
     enc, llm_cfg = internvl2_2b.ENCODER, internvl2_2b.LLM
     S_ENC, S_LLM = 4096, 256 + 1024
+    # phase 11's model, mllm-100m: the rows of microbatch 0 of a first batch of
+    # the mix, GBS items in N_mb groups, as its loop builds them
+    m100, n_mb100 = m100_loop.MCFG, m100_loop.LOCAL_PLAN.n_mb
+    m100_ds = MixedDataset("mixed", seed=0, tokens_per_media_item=m100_loop.TPM)
+    m100_mb = {k: v[0] for k, v in m100_loop.build_batches(
+        m100_ds, m100_loop.LOCAL_PLAN, m100_ds.sample(m100_loop.GBS),
+        [list(range(i, m100_loop.GBS, n_mb100)) for i in range(n_mb100)], n_mb100).items()}
+    M100_ROWS = m100_mb["media_mask"].shape[0]
+    # the connector pools the media window to tokens_per_item_out tokens
+    M100_POOLED = m100_loop.MAX_MEDIA // (m100_loop.MAX_MEDIA // m100.tokens_per_item_out)
     llava_cfg = dataclasses.replace(llava_ov_qwen7b.CFG, llm=dataclasses.replace(
         llava_ov_qwen7b.LLM, n_layers=LLAVA_LAYERS))
     sig, qwen = llava_cfg.encoder, llava_cfg.llm
@@ -343,6 +381,21 @@ def main() -> int:
                            seg=torch.as_tensor(q_seg)[None]),
         # gemma-2b-shaped (D 256): timed only
         "gemma": dict(B=2, S=4096, causal=True, seg=seg_rows(4096, [4096, 4096]), **GEMMA),
+        # the reference's 100M MLLM (phase 11, fp32: the CUDA-core kernels):
+        # microbatch 0 of its first batch, media -> {1 real, 0 padded tail}
+        "mllm100m_encoder": dict(B=M100_ROWS, KH=m100.encoder.n_kv_heads,
+                                 G=m100.encoder.n_heads // m100.encoder.n_kv_heads,
+                                 S=m100_loop.MAX_MEDIA, D=m100.encoder.head_dim,
+                                 causal=False, seg=torch.as_tensor(m100_mb["media_mask"]),
+                                 dtype=torch.float32),
+        # its LLM: the pooled media tokens (segment 1) + text, 0 past text_mask
+        "mllm100m_llm": dict(B=M100_ROWS, KH=m100.llm.n_kv_heads,
+                             G=m100.llm.n_heads // m100.llm.n_kv_heads,
+                             S=M100_POOLED + m100_loop.MAX_TEXT, D=m100.llm.head_dim,
+                             causal=True, seg=torch.as_tensor(np.concatenate(
+                                 [np.ones((M100_ROWS, M100_POOLED), np.int32),
+                                  m100_mb["text_mask"]], 1)),
+                             dtype=torch.float32),
     }
     masked = seg_rows(200, [200])
     masked[:, :40] = 7                              # 40 rows attend nothing
@@ -352,8 +405,8 @@ def main() -> int:
     for row, cuts in enumerate([(0, 50, 120, 121, 260, 300), (0, 64, 128, 200, 290)]):
         for i in range(len(cuts) - 1):
             packed[row, cuts[i]:cuts[i + 1]] = i + 1
-    cases = {f"{n}/bf16": make_case(sh["B"], sh["KH"], sh["G"], sh["S"], sh["D"],
-                                    torch.bfloat16, sh["causal"], 0, sh["seg"])
+    cases = {f"{n}/{dtype_tag(sh)}": make_case(sh["B"], sh["KH"], sh["G"], sh["S"], sh["D"],
+                                               path_dtype(sh), sh["causal"], 0, sh["seg"])
              for n, sh in path_shapes.items()}
     for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
         cases.update({
@@ -626,7 +679,10 @@ def main() -> int:
     for shape, sh in path_shapes.items():
         B, KH, G, S, D, causal = (sh[n] for n in ("B", "KH", "G", "S", "D", "causal"))
         H = KH * G
-        c = make_case(B, KH, G, S, D, torch.bfloat16, causal, 0, sh["seg"])
+        c = make_case(B, KH, G, S, D, path_dtype(sh), causal, 0, sh["seg"])
+        # the CUDA-core fp32 kernels are held to the fp32 peak (the route
+        # refuses TF32), the tensor-core ones to bf16's
+        peak = PEAK_FP32 if path_dtype(sh) == torch.float32 else PEAK_BF16
         q, k, v, do, seg = c["q"], c["k"], c["v"], c["do"], c["seg_q"]
         o, lse = pfa.flash_fwd(q, k, v, seg, seg, causal, 0, 256, 256)
         delta = torch.sum(do.float() * o.float(), -1).contiguous()
@@ -674,7 +730,7 @@ def main() -> int:
         # SDPA's backward alone: fwd+bwd - fwd, one number for K2 and K3 together
         lib = {"K1": lib_fwd, "K2": lib_fwd_bwd - lib_fwd, "K3": lib_fwd_bwd - lib_fwd}
         for kn, (ops_, nbytes) in work.items():
-            t_ops, t_bytes = ops_ / PEAK_BF16 * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops, t_bytes = ops_ / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
             timing[(kn, shape)] = dict(
                 ms=t[kn], plain_ms=plain[kn], bound_ms=max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
@@ -682,7 +738,7 @@ def main() -> int:
                 library_note=("SDPA with the same boolean mask" if kn == "K1" else
                               "SDPA backward (fwd+bwd - fwd), dq and dk/dv together"))
             r = timing[(kn, shape)]
-            log(f"[timing] {kn} {shape} (B={B} KH={KH} G={G} S={S} D={D} bf16 "
+            log(f"[timing] {kn} {shape} (B={B} KH={KH} G={G} S={S} D={D} {dtype_tag(sh)} "
                 f"causal={causal}, {pfa.route_of(q.dtype)}): kernel "
                 f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
                 f"({r['bound_by']}, {100 * r['bound_ms'] / r['ms']:.1f} % of it), "
@@ -835,22 +891,37 @@ def main() -> int:
             f"{1 - busy / 1e6 / step_s:.3f}; {sum(n for _, n in per_name.values())} "
             f"device events, {len(per_name)} kernel names")
         for kn, frag in TRACE_NAME.items():
+            # shapes that run one instantiation (mllm-100m's encoder and LLM
+            # both take fwd_kernel<64>) share a line: the trace cannot tell
+            # their launches apart
+            groups = {}
             for shape in (sh for sh in shapes if sh in path_shapes):   # attention shapes
                 # the instantiation: tile width, and whether the head dim pads it
                 D = path_shapes[shape]["D"]
                 tile = next(w for w in (64, 128, 256) if D <= w)
-                inst = f"<{tile}, {'true' if D < tile else 'false'}>"
-                hits = [(nm, tot, n) for nm, (tot, n) in per_name.items()
-                        if frag in nm and inst in nm]
+                if path_dtype(path_shapes[shape]) == torch.float32:
+                    key = ("re", FP32_TRACE[kn].format(t=tile))
+                else:
+                    key = ("in", f"<{tile}, {'true' if D < tile else 'false'}>")
+                groups.setdefault(key, []).append(shape)
+            for (how, pat), group in groups.items():
+                if how == "re":
+                    rx = re.compile(pat)
+                    hits = [(nm, tot, n) for nm, (tot, n) in per_name.items()
+                            if rx.search(nm)]
+                else:
+                    hits = [(nm, tot, n) for nm, (tot, n) in per_name.items()
+                            if frag in nm and pat in nm]
                 tot = sum(t for _, t, _ in hits)
                 n = sum(c for _, _, c in hits)
-                iso = timing[(kn, shape)]["ms"]
+                iso = ", ".join(f"{timing[(kn, sh)]['ms']:.3f}" for sh in group)
                 if n:
-                    log(f"[profile] {tag} {kn} {shape}: {tot / 1e3:.3f} ms device time over "
-                        f"{n} launches in the step, {tot / 1e3 / n:.3f} ms per launch "
-                        f"(isolated {iso:.3f} ms); {[nm[:60] for nm, _, _ in hits]}")
+                    log(f"[profile] {tag} {kn} {' + '.join(group)}: {tot / 1e3:.3f} ms device "
+                        f"time over {n} launches in the step, {tot / 1e3 / n:.3f} ms per "
+                        f"launch (isolated {iso} ms); {[nm[:60] for nm, _, _ in hits]}")
                 else:
-                    log(f"[profile] {tag} {kn} {shape}: no launch found in the trace")
+                    log(f"[profile] {tag} {kn} {' + '.join(group)}: no launch found in the "
+                        f"trace")
         for kn in scans:
             sh = SCAN_SHAPES[shapes[0]]
             pat = re.compile(SCAN_TRACE[kn].format(n=sh["N"] if "N" in sh else sh["M"]))
@@ -1180,7 +1251,140 @@ def main() -> int:
     log(f"[train] gemma-shaped (bf16, D {GEMMA['D']}, causal) launches over every training "
         f"phase: {gemma_launches}")
 
-    # 11. summary ---------------------------------------------------------- #
+    # 11. runtime: the closed control loop on the reference's 100M MLLM ---- #
+    # (a) calibration from measured kernels: bench_kernel through the kernels'
+    # fp32 entry points (K1, then K1+K2+K3; K4, K4+K5; K6, K6+K7), the
+    # measured/analytic-H100 unit per kernel and direction, into a calibrator
+    from repro_torch.runtime import OnlineCalibrator
+    from repro_torch.train import checkpoint
+    reset_counts()
+    t0 = time.perf_counter()
+    seqs = (1024, 2048, 4096, 8192)
+    rows = (bench.bench_kernel("attention", seqs,
+                               dims=dict(B=1, KH=8, G=2, D=128, causal=True))
+            + bench.bench_kernel("mamba", seqs) + bench.bench_kernel("rwkv6", seqs))
+    bench.normalize(rows)
+    bench_s = time.perf_counter() - t0
+    for r in rows:
+        log(f"[runtime] bench {r['kernel']} {r['direction']} S {r['tokens']} (bucket "
+            f"{r['bucket']}): measured {r['measured_s'] * 1e3:.4f} ms (iterations "
+            f"{', '.join(f'{x * 1e3:.4f}' for x in r['times_s'])}), analytic H100 "
+            f"{r['analytic_s'] * 1e3:.5f} ms, unit {r['unit']:.3f}, ratio {r['ratio']:.3f}")
+    units = {(r["kernel"], r["direction"]): r["unit"] for r in rows}
+    log(f"[runtime] bench units (measured / analytic H100, geomean over S): " + ", ".join(
+        f"{k}/{d} {u:.3f}" for (k, d), u in units.items()) + f"; {bench_s:.1f} s")
+    if not all(math.isfinite(r["ratio"]) and r["measured_s"] > 0 for r in rows):
+        raise SystemExit("runtime: a bench row has no finite ratio")
+    bench_launches = {"K1": sum(n for key, n in pfa.LAUNCHES.items() if key[0] == "fwd"),
+                      "K2": sum(n for key, n in pfa.LAUNCHES.items() if key[0] == "bwd_dq"),
+                      "K3": sum(n for key, n in pfa.LAUNCHES.items() if key[0] == "bwd_dkv"),
+                      "K4": mamba_scan.LAUNCHES["fwd"], "K5": mamba_scan.LAUNCHES["bwd"],
+                      "K6": rwkv6_scan.LAUNCHES["fwd"], "K7": rwkv6_scan.LAUNCHES["bwd"]}
+    log(f"[runtime] bench launches: {bench_launches}; K1-K3 by key: {dict(pfa.LAUNCHES)}")
+    if min(bench_launches.values()) == 0 or any(
+            key[1] != pfa.CUDA_CORE for key in pfa.LAUNCHES):
+        raise SystemExit(f"runtime: bench_kernel did not launch every kernel in fp32: "
+                         f"{bench_launches}, {dict(pfa.LAUNCHES)}")
+    cal = OnlineCalibrator()
+    n_obs = bench.seed_calibrator(cal, rows)
+    mature = sum(c.n >= cal.min_obs for c in cal.cells.values())
+    log(f"[runtime] seeded calibrator: {n_obs} observations, {len(cal.cells)} cells, "
+        f"{mature} mature: {json.dumps(cal.snapshot())}")
+    if not (n_obs == sum(len(r["times_s"]) for r in rows) and mature == len(cal.cells) > 0):
+        raise SystemExit("runtime: the calibrator was not seeded")
+
+    # (b) train_mllm at mllm-100m, full size: the re-plan smoke over a data
+    # shift, the lookahead composer, and the data-agnostic baseline
+    m100_shapes = ("mllm100m_encoder", "mllm100m_llm")
+    trace_path = os.path.join(HERE, "build", "runtime_trace.json")
+    ckpt_path = os.path.join(HERE, "build", "runtime_ckpt")
+    m100_launches = {(kn, shape): 0 for kn in COUNTER for shape in m100_shapes}
+    m100_steps = 0
+    for tag, argv in (("replan", ["--steps", "24", "--shift-at", "6", "--replan",
+                                  "--trace", trace_path, "--ckpt", ckpt_path]),
+                      ("compose", ["--steps", "12", "--compose-window", "2"]),
+                      ("random", ["--steps", "12", "--random"])):
+        reset_counts()
+        torch.cuda.synchronize()
+        log(f"[runtime] {tag}: python -m repro_torch.train_mllm {' '.join(argv)}")
+        run = m100_loop.run(m100_loop.parse_args(argv + ["--device", "cuda"]))
+        ctl, steps = run["ctl"], run["steps"]
+        count_gemma()
+        for st in steps:
+            sc = st["schedule"]
+            log(f"[runtime] {tag} step {st['step']}: loss {st['loss']:.5f}, "
+                f"{st['seconds']:.4f} s, cmax {sc.cmax:.6f} s, predicted step "
+                f"{sc.step_makespan:.6f} s (measured / predicted "
+                f"{st['seconds'] / sc.step_makespan:.2f}), solver {sc.solver}, groups "
+                f"{[len(g) for g in sc.groups]}, plan {sc.plan.as_tuple()}, "
+                f"search in flight {st['in_flight']}")
+        losses = [st["loss"] for st in steps]
+        if not all(math.isfinite(x) for x in losses):
+            raise SystemExit(f"runtime {tag}: non-finite loss {losses}")
+        secs = [st["seconds"] for st in steps[1:]]
+        busy = [st["seconds"] for st in steps[1:] if st["in_flight"]]
+        quiet = [st["seconds"] for st in steps[1:] if not st["in_flight"]]
+        log(f"[runtime] {tag}: {len(steps)} steps in {run['wall_s']:.2f} s; steps 1.. "
+            f"mean {sum(secs) / len(secs):.4f} s, min {min(secs):.4f}, max {max(secs):.4f}; "
+            f"with a re-plan search in flight {len(busy)} steps"
+            + (f", mean {sum(busy) / len(busy):.4f} s" if busy else "")
+            + (f"; without, mean {sum(quiet) / len(quiet):.4f} s" if quiet else "")
+            + f"; peak {run['peak_gib']:.3f} GiB")
+        kinds = {}
+        for ev in ctl.drift.events:
+            kinds[ev.kind] = kinds.get(ev.kind, 0) + 1
+        log(f"[runtime] {tag}: drift events {kinds}: " + "; ".join(
+            f"{ev.kind} statistic {ev.statistic:.4f} (threshold {ev.threshold}) at item "
+            f"{ev.n_obs}" for ev in ctl.drift.events))
+        spans = [e["dur"] / 1e6 for e in ctl.trace.to_chrome()["traceEvents"]
+                 if e["name"] == "replan-search"]
+        for r in ctl.replans:
+            log(f"[runtime] {tag}: replan on {r.trigger.kind}: stale makespan "
+                f"{r.stale_makespan:.6f} s, new {r.new_makespan:.6f} s, swapped {r.swapped}"
+                f", gated {r.gated}, plan {r.plan_tuple}, search host {r.search_elapsed_s:.3f}"
+                f" s")
+        log(f"[runtime] {tag}: replan-search spans (host s): "
+            f"{[round(x, 4) for x in spans]}; final plan {ctl.plan.as_tuple()}")
+        log(f"[runtime] {tag}: metrics {json.dumps(ctl.metrics.snapshot())}")
+        n = {(kn, shape): pfa.LAUNCHES[(COUNTER[kn], pfa.CUDA_CORE, path_shapes[shape]["D"],
+                                        path_shapes[shape]["causal"])]
+             for kn in COUNTER for shape in m100_shapes}
+        log(f"[runtime] {tag}: K1-K3 launches (kernel, route, head_dim, causal): "
+            f"{dict(pfa.LAUNCHES)}")
+        if any(key[1] != pfa.CUDA_CORE for key in pfa.LAUNCHES) or min(n.values()) == 0:
+            raise SystemExit(f"runtime {tag}: K1-K3 must all launch on the CUDA cores at "
+                             f"both shapes: {dict(pfa.LAUNCHES)}")
+        for key in m100_launches:
+            m100_launches[key] += n[key]
+        m100_steps += len(steps)
+        if tag == "replan":
+            if kinds.get("shape-ks", 0) < 1 or not ctl.replans:
+                raise SystemExit(f"runtime replan: no shape-ks drift or no finished "
+                                 f"re-plan: {kinds}, {ctl.replans}")
+            with open(trace_path) as f:
+                names = {e["name"] for e in json.load(f)["traceEvents"]}
+            want = {"schedule", "step", "replan-search"}
+            if not (want <= names and any(nm.startswith("drift:") for nm in names)):
+                raise SystemExit(f"runtime replan: the trace lacks events: {sorted(names)}")
+            restored = checkpoint.restore(ckpt_path, run["params"])
+            same = all(torch.equal(a.view(torch.int32), b.detach().view(torch.int32))
+                       for a, b in zip(tree_leaves(restored), tree_leaves(run["params"])))
+            log(f"[runtime] replan: trace {trace_path} holds {sorted(names)}; checkpoint "
+                f"{ckpt_path}.npz restores bitwise equal to the live params: {same}")
+            if not same:
+                raise SystemExit("runtime replan: the checkpoint does not restore bitwise")
+        # one more step under the profiler (after the counts and the checkpoint)
+        profile_step(lambda: run["train_step"](run["params"], run["opt"], run["batch"],
+                                               run["lr"]),
+                     f"mllm-100m {tag}", m100_shapes, sum(secs) / len(secs))
+        del run, ctl
+        torch.cuda.empty_cache()
+    launches.update(m100_launches)
+    log(f"[runtime] K1-K3 launches over the {m100_steps} steps: "
+        + ", ".join(f"{kn} {shape} {n} ({n / m100_steps:g}/step)"
+                    for (kn, shape), n in m100_launches.items()))
+
+    # 12. summary ---------------------------------------------------------- #
     kernels = []
     for (kn, shape), r in timing.items():
         kernels.append({

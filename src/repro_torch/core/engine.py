@@ -7,10 +7,17 @@
     for batch_items in loader:
         out = sched.schedule(batch_items)    # index groups -> data loader
 
+Closed-loop operation (repro_torch.runtime) adds observe → re-plan on top:
+
+    ctl = engine.runtime(gbs)                # RuntimeController
+    for batch_items in loader:
+        out = ctl.schedule(batch_items)      # drift-checked, hot-swappable
+        ...run step, measure...
+        ctl.observe_step(out, measured_s)    # telemetry + drift feedback
+
 The port prices with ``AnalyticBackend(H100)`` unless a backend is given.
-The reference's closed loops, ``runtime()`` (observe → re-plan) and
-``serving()``, need ``runtime/`` and ``serve/``, which the port does not
-have yet: both raise ``NotImplementedError``.
+The reference's serving loop, ``serving()``, needs ``serve/``, which the
+port does not have yet: it raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -106,11 +113,68 @@ class DFLOPEngine:
             ilp_time_limit_s=ilp_time_limit_s, adaptive=corr, mode=self.mode)
 
     # ------------------------------------------------------------------ #
-    def runtime(self, gbs: int, **kw):
-        raise NotImplementedError(
-            "the closed control loop (runtime/, data/composer.py) is not "
-            "ported yet")
+    def runtime(self, gbs: int, *, plan: Optional[ParallelismPlan] = None,
+                adaptive: bool = True, calibrate: bool = True,
+                trace: bool = True, drift=None, auto_replan: bool = True,
+                min_improvement: float = 0.02,
+                replan_n_trials: int = 8,
+                ilp_time_limit_s: float = 0.25,
+                param_swapper=None,
+                swap_horizon_batches: int = 50,
+                compose_window: int = 0,
+                max_staleness: Optional[int] = None,
+                fleet=None):
+        """Closed control loop: returns a `repro.runtime.RuntimeController`
+        wrapping this engine + a fresh scheduler.  Plans first if needed.
 
+        ``param_swapper`` (see `repro.launch.reshard.ParamSwapper`) threads
+        the training loop's *live* params through the controller: a plan
+        hot-swap then physically re-lays-out parameters on device, gated on
+        amortized reshard cost over ``swap_horizon_batches``.
+
+        ``compose_window=W`` > 0 attaches a lookahead batch composer
+        (`repro.data.composer.LookaheadComposer`) holding a ``W·gbs``
+        reorder window; ``max_staleness`` bounds how many batches an item
+        may wait in it (default ``2·W``).  The controller wires the
+        composer's telemetry and flushes its window pricing on plan
+        hot-swaps; feed it via ``ctl.compose(draw=...)`` or
+        ``ScheduledLoader(composer=ctl.composer)``.
+
+        ``fleet`` (see `repro.launch.fleet.FleetManager`) makes the loop
+        *elastic*: the controller drains membership events at batch
+        boundaries (`poll_fleet`) and recovers checkpoint-free — re-plan
+        for the surviving roster, migrate live params via
+        ``param_swapper`` (use ``mesh_factory=fleet.plan_mesh``), degrade
+        instead of crashing when either fails."""
+        from repro_torch.runtime import (DriftDetector, OnlineCalibrator,
+                                         RuntimeController, RuntimeMetrics,
+                                         TraceRecorder)
+        if plan is None:
+            if self.plan_result is None or self.plan_result.plan is None:
+                self.plan(gbs)
+            plan = self.plan_result.plan
+        sched = self.scheduler(plan=plan, adaptive=adaptive,
+                               ilp_time_limit_s=ilp_time_limit_s)
+        composer = None
+        if compose_window > 0:
+            from repro_torch.data.composer import LookaheadComposer
+            composer = LookaheadComposer(sched, gbs=gbs,
+                                         window=compose_window,
+                                         max_staleness=max_staleness)
+        return RuntimeController(
+            self, sched, gbs,
+            trace=TraceRecorder(enabled=trace),
+            metrics=RuntimeMetrics(),
+            calibration=OnlineCalibrator() if calibrate else None,
+            drift=drift if drift is not None else DriftDetector(),
+            auto_replan=auto_replan, min_improvement=min_improvement,
+            replan_n_trials=replan_n_trials,
+            param_swapper=param_swapper,
+            swap_horizon_batches=swap_horizon_batches,
+            composer=composer,
+            fleet=fleet)
+
+    # ------------------------------------------------------------------ #
     def serving(self, **kw):
         raise NotImplementedError(
-            "the serving loop (serve/, runtime/) is not ported yet")
+            "the serving loop (serve/) is not ported yet")

@@ -4,12 +4,13 @@
 effectively fixing the batch size to 1 while making L_seq_len highly
 variable."  Segment ids preserve per-instance causal integrity (consumed by
 the packed flash-attention mask).  A copy of the reference's
-``data/packing.py`` (``PackedBatch``, ``pack_tokens``, ``pack_items``).
+``data/packing.py`` (``PackedBatch``, ``pack_tokens``, ``pack_items``,
+``greedy_bin_pack``).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Sequence
+from typing import List, Sequence
 
 import numpy as np
 
@@ -87,3 +88,25 @@ def pack_items(items: Sequence[DataItem], budget: int,
     pb = pack_tokens(seqs, budget)
     pb.truncated += pre_clipped
     return pb
+
+
+def greedy_bin_pack(lengths: Sequence[int], budget: int) -> List[List[int]]:
+    """First-fit-decreasing packing of item lengths into budget-sized bins.
+    Returns item-index groups (used by the data loader to build microbatch
+    rows once the scheduler has fixed the groups)."""
+    order = np.argsort(lengths)[::-1]
+    bins: List[List[int]] = []
+    space: List[int] = []
+    for i in order:
+        L = min(int(lengths[i]), budget)
+        placed = False
+        for b, s in enumerate(space):
+            if s >= L:
+                bins[b].append(int(i))
+                space[b] -= L
+                placed = True
+                break
+        if not placed:
+            bins.append([int(i)])
+            space.append(budget - L)
+    return bins

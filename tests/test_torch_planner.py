@@ -398,9 +398,14 @@ def test_engine_profile_plan_schedule_matches_reference():
 
 
 def test_engine_closed_loops_stay_unported():
+    """``serving()`` is not ported.  ``runtime()`` is (held against the
+    reference in ``tests/test_torch_runtime.py``) and, as the reference's
+    does, plans first, which needs ``profile()``."""
     eng = DFLOPEngine(llm_cfg=LLM, cluster=space.ClusterSpec(**CLUSTER))
-    with pytest.raises(NotImplementedError, match="runtime/"):
-        eng.runtime(8)
+    jeng = JEngine(llm_cfg=J_LLM, cluster=jspace.ClusterSpec(**CLUSTER))
+    for e in (eng, jeng):
+        with pytest.raises(AssertionError, match=r"call profile\(\) first"):
+            e.runtime(8)
     with pytest.raises(NotImplementedError, match="serve/"):
         eng.serving()
 
