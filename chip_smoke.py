@@ -9,11 +9,13 @@ Phases, each reported on its own lines:
                 ``src/repro_torch/kernels/csrc`` side by side (one ``nvcc`` each)
                 and prints the ``-Xptxas -v`` register / shared-memory lines;
   3. compare  — each kernel against its plain PyTorch version on the card:
-                K1 forward and K2/K3 gradients at the nine attention shapes
-                (bf16: InternVL2-2B's encoder and LLM, Jamba's, LLaVA-OV's SigLIP
-                at D 72 and Qwen2.5 at G 7, the quickstart's packed 8192-token
-                InternLM2-1.8B row of phase 10, a gemma-2b-shaped D 256; in fp32 the
-                100M MLLM's encoder and LLM of phase 11) and at small
+                K1 forward and K2/K3 gradients at the twelve attention shapes
+                of the training paths (bf16: InternVL2-2B's encoder and LLM,
+                Jamba's, LLaVA-OV's SigLIP at D 72 and Qwen2.5 at G 7, the
+                quickstart's packed 8192-token InternLM2-1.8B row of phase 10,
+                phase 12's Granite-MoE at G 3, Mixtral's 4096 window over 8192-token
+                rows, HuBERT's bidirectional D 80 and gemma-2b's MQA at D 256; in
+                fp32 the 100M MLLM's encoder and LLM of phase 11) and at small
                 edge cases in bf16 (K1–K3 on the tensor cores) and in fp32 (K1–K3
                 on the CUDA cores) at head dims 24, 32, 64, 72, 80, 128 and 256:
                 prime length, a window spanning tiles, G = 4, 7 and 8, rows masked
@@ -83,7 +85,20 @@ Phases, each reported on its own lines:
                 predicted cmax and step, whether a re-plan search was in flight; drift
                 events, re-plans, metrics, launches, peak; one more step of each under
                 ``torch.profiler``;
- 12. summary  — one JSON line of the kernels, the card line, then the result.
+ 12. archs    — the registry's configurations (``configs.get_config``) through
+                ``make_train_step(ModelConfig)``, 3 AdamW steps each, K1-K3 launches
+                by route (all on the tensor cores), peak memory, then one more step
+                under ``torch.profiler`` (K1-K3 device ms, the expert GEMMs, the MoE
+                dispatch and the LM head by group, idle share): (a) Granite-MoE-3B-A800M
+                at full size (40 experts top-8, capacity path at factor 2.0) on packed
+                rows, with each step's moe_drop_rate and moe_imbalance; (b) Mixtral-8x7B
+                at full width cut to 2 layers, on 8192-token rows; (c) one MoE layer of
+                each at full width, the capacity path (nothing dropped) against the
+                dense oracle (loss, output, gradients of x, router and experts), and
+                twice, bitwise; (d) HuBERT-XLarge at full size, the encoder-only
+                masked-prediction loss on seeded frame embeddings; (e) gemma-2b at
+                full size;
+ 13. summary  — one JSON line of the kernels, the card line, then the result.
 
 Counts are set to 0 just before a training path and read just after it.
 Any failed check raises and the script exits non-zero.
@@ -153,9 +168,18 @@ PATH_S = 1024
 # to 8 layers: fp32 parameters, gradients and AdamW moments take 16 B a
 # parameter, 7.615 B parameters at 28 layers would need ~122 GB.
 LLAVA_TPM, LLAVA_MEDIA, LLAVA_TEXT, LLAVA_LAYERS = 729, 5 * 729, 1024, 8
-# gemma-2b's attention (head_dim 256, MQA over 8 query heads): timed beside
-# the paths' shapes; no training path runs it yet.
-GEMMA = dict(KH=1, G=8, D=256)
+# Phase 12's paths (``configs.get_config``): Granite-MoE-3B-A800M at full
+# size on the decoders' 2 x 2 rows of 4096 packed tokens; Mixtral-8x7B at
+# full width cut from 32 to 2 layers (16 B a parameter of fp32 state: 3.165 B
+# parameters at 2 layers take 50.6 GB) on 2 x 1 rows of 8192, so its 4096
+# window masks whole key tiles; HuBERT-XLarge at full size on 2 x 2 rows of
+# 4096 seeded frame embeddings; gemma-2b at full size on 2 x 2 rows of 2048
+# (its fp32 logits at vocab 256000 take 1 GB a 1024 tokens).
+MIXTRAL_LAYERS, MIXTRAL_S, GEMMA_S = 2, 8192, 2048
+# MoE dispatch ops in a profiler trace (phase 12's device ms by group),
+# forward and backward
+DISPATCH_OPS = {"aten::topk", "aten::cumsum", "aten::bincount", "aten::gather",
+                "aten::index_add", "aten::index_add_", "aten::index_select"}
 # Kernel vs plain, per output, both relative to the plain output itself:
 # (max|err| / max|plain|, ||err|| / ||plain||).  In bf16 both sides round
 # their fp32 results once (2^-8 relative), so they differ by about one bf16
@@ -198,7 +222,8 @@ def main() -> int:
     from repro_torch import quickstart
     from repro_torch import train_mllm as m100_loop
     from repro_torch.common.pytree import global_norm, tree_leaves, tree_paths
-    from repro_torch.configs import internvl2_2b, jamba_v0_1_52b, llava_ov_qwen7b, rwkv6_7b
+    from repro_torch.configs import (get_config, internvl2_2b, jamba_v0_1_52b,
+                                     llava_ov_qwen7b, rwkv6_7b)
     from repro_torch.core.engine import DFLOPEngine
     from repro_torch.core.optimizer.space import ClusterSpec
     from repro_torch.core.profiling.analytic import H100, AnalyticBackend
@@ -207,6 +232,7 @@ def main() -> int:
     from repro_torch.kernels import bench, build, mamba_scan, rwkv6_scan
     from repro_torch.kernels import packed_flash_attention as pfa
     from repro_torch.models import mllm, model
+    from repro_torch.models.layers import moe
     from repro_torch.models.model import FwdCtx
     from repro_torch.train import optim, step
 
@@ -295,24 +321,66 @@ def main() -> int:
     jamba_cfg = dataclasses.replace(jamba_v0_1_52b.CFG, n_layers=DEC_LAYERS,
                                     ffn_pattern=("dense",))
 
-    def decoder_batch(cfg, seed, n_mb=DEC_MB, S=DEC_S):
-        """n_mb x DEC_ROWS rows of S tokens: items of the mixed data drawn
+    def decoder_batch(cfg, seed, n_mb=DEC_MB, S=DEC_S, rows=DEC_ROWS):
+        """n_mb x rows rows of S tokens: items of the mixed data drawn
         until a row overflows, then packed (the overflow is truncated and
         counted by pack_items)."""
         ds = MixedDataset("mixed", seed=seed, tokens_per_media_item=DEC_TPM)
         rng = np.random.default_rng(seed)
         packed = []
-        for _ in range(n_mb * DEC_ROWS):
+        for _ in range(n_mb * rows):
             items = ds.sample(1)
             while sum(it.llm_seq_len(DEC_TPM) for it in items) < S:
                 items += ds.sample(1)
             packed.append(pack_items(items, S, DEC_TPM, cfg.vocab_size, rng))
         return {k: np.stack([getattr(pb, k)[0] for pb in packed]).reshape(
-            n_mb, DEC_ROWS, S) for k in ("tokens", "labels", "segment_ids",
-                                         "positions")}
+            n_mb, rows, S) for k in ("tokens", "labels", "segment_ids",
+                                     "positions")}
 
     dec_batches = {"rwkv6-7b": [decoder_batch(rwkv_cfg, s) for s in range(3)],
                    "jamba": [decoder_batch(jamba_cfg, 10 + s) for s in range(3)]}
+
+    # phase 12's configurations, from the registry, and their batches (numpy,
+    # seeded)
+    granite_cfg = get_config("granite-moe-3b-a800m").desc
+    mixtral_full = get_config("mixtral-8x7b").desc
+    mixtral_cfg = dataclasses.replace(mixtral_full, n_layers=MIXTRAL_LAYERS)
+    hubert_cfg = get_config("hubert-xlarge").desc
+    gemma_cfg = get_config("gemma-2b").desc
+
+    def hubert_batch(cfg, seed, n_mb=DEC_MB, rows=DEC_ROWS, S=DEC_S):
+        """HuBERT's masked prediction: seeded frame embeddings (the stubbed
+        feature extractor's), spans of 10 frames masked from 8 % of the
+        frames (HuBERT's p and span), a unit label on each masked frame and
+        -1 elsewhere; row 1 of each microbatch ends in 596 padding frames
+        (segment 0, no labels)."""
+        rng = np.random.default_rng(seed)
+        emb = rng.standard_normal((n_mb, rows, S, cfg.input_embed_dim)).astype(np.float32)
+        starts = rng.random((n_mb, rows, S)) < 0.08
+        masked = starts.copy()
+        for off in range(1, 10):
+            masked[..., off:] |= starts[..., :-off]
+        seg = np.ones((n_mb, rows, S), np.int32)
+        seg[:, 1, S - 596:] = 0
+        labels = np.where(masked & (seg > 0),
+                          rng.integers(0, cfg.vocab_size, (n_mb, rows, S)), -1)
+        return {"frame_embeds": emb, "labels": labels.astype(np.int32),
+                "segment_ids": seg}
+
+    arch_batches = {
+        "granite": [decoder_batch(granite_cfg, 30 + s) for s in range(3)],
+        "mixtral": [decoder_batch(mixtral_cfg, 40 + s, S=MIXTRAL_S, rows=1)
+                    for s in range(3)],
+        "hubert": [hubert_batch(hubert_cfg, 50 + s) for s in range(3)],
+        "gemma": [decoder_batch(gemma_cfg, 60 + s, S=GEMMA_S) for s in range(3)],
+    }
+
+    def arch_shape(cfg, key, **kw):
+        """The attention shape of phase 12's path ``key``: its first
+        microbatch's rows and segments."""
+        seg = torch.as_tensor(arch_batches[key][0]["segment_ids"][0])
+        return dict(B=seg.shape[0], KH=cfg.n_kv_heads, G=cfg.n_heads // cfg.n_kv_heads,
+                    S=seg.shape[1], D=cfg.head_dim, causal=cfg.causal, seg=seg, **kw)
 
     # the quickstart path of phase 10 (numpy): its first batch, drawn the same
     # way there; the microbatch with the most segments gives the attention
@@ -379,8 +447,13 @@ def main() -> int:
                            G=llm_cfg.n_heads // llm_cfg.n_kv_heads, S=qsz.token_budget,
                            D=llm_cfg.head_dim, causal=True,
                            seg=torch.as_tensor(q_seg)[None]),
-        # gemma-2b-shaped (D 256): timed only
-        "gemma": dict(B=2, S=4096, causal=True, seg=seg_rows(4096, [4096, 4096]), **GEMMA),
+        # phase 12: Granite-MoE (G 3, D 64), Mixtral (G 4, D 128, window
+        # 4096 over 8192-token rows), HuBERT (bidirectional, D 80 in a
+        # 128-column tile), gemma-2b (MQA, G 8, D 256)
+        "granite": arch_shape(granite_cfg, "granite"),
+        "mixtral": arch_shape(mixtral_cfg, "mixtral", window=mixtral_cfg.window_size),
+        "hubert": arch_shape(hubert_cfg, "hubert"),
+        "gemma": arch_shape(gemma_cfg, "gemma"),
         # the reference's 100M MLLM (phase 11, fp32: the CUDA-core kernels):
         # microbatch 0 of its first batch, media -> {1 real, 0 padded tail}
         "mllm100m_encoder": dict(B=M100_ROWS, KH=m100.encoder.n_kv_heads,
@@ -406,7 +479,8 @@ def main() -> int:
         for i in range(len(cuts) - 1):
             packed[row, cuts[i]:cuts[i + 1]] = i + 1
     cases = {f"{n}/{dtype_tag(sh)}": make_case(sh["B"], sh["KH"], sh["G"], sh["S"], sh["D"],
-                                               path_dtype(sh), sh["causal"], 0, sh["seg"])
+                                               path_dtype(sh), sh["causal"],
+                                               sh.get("window", 0), sh["seg"])
              for n, sh in path_shapes.items()}
     for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
         cases.update({
@@ -678,22 +752,22 @@ def main() -> int:
     timing = {}
     for shape, sh in path_shapes.items():
         B, KH, G, S, D, causal = (sh[n] for n in ("B", "KH", "G", "S", "D", "causal"))
-        H = KH * G
-        c = make_case(B, KH, G, S, D, path_dtype(sh), causal, 0, sh["seg"])
+        H, win = KH * G, sh.get("window", 0)
+        c = make_case(B, KH, G, S, D, path_dtype(sh), causal, win, sh["seg"])
         # the CUDA-core fp32 kernels are held to the fp32 peak (the route
         # refuses TF32), the tensor-core ones to bf16's
         peak = PEAK_FP32 if path_dtype(sh) == torch.float32 else PEAK_BF16
         q, k, v, do, seg = c["q"], c["k"], c["v"], c["do"], c["seg_q"]
-        o, lse = pfa.flash_fwd(q, k, v, seg, seg, causal, 0, 256, 256)
+        o, lse = pfa.flash_fwd(q, k, v, seg, seg, causal, win, 256, 256)
         delta = torch.sum(do.float() * o.float(), -1).contiguous()
-        bargs = (q, k, v, seg, seg, do, lse, delta, causal, 0)
+        bargs = (q, k, v, seg, seg, do, lse, delta, causal, win)
         t = {
-            "K1": cuda_ms(lambda: pfa.flash_fwd(q, k, v, seg, seg, causal, 0, 256, 256), 10),
+            "K1": cuda_ms(lambda: pfa.flash_fwd(q, k, v, seg, seg, causal, win, 256, 256), 10),
             "K2": cuda_ms(lambda: pfa.flash_bwd_dq(*bargs, 256, 256), 10),
             "K3": cuda_ms(lambda: pfa.flash_bwd_dkv(*bargs, 256, 256), 10),
         }
         plain = {
-            "K1": cuda_ms(lambda: pfa.fwd_plain(q, k, v, seg, seg, causal, 0, 256, 256), 3, 1),
+            "K1": cuda_ms(lambda: pfa.fwd_plain(q, k, v, seg, seg, causal, win, 256, 256), 3, 1),
             "K2": cuda_ms(lambda: pfa.bwd_dq_plain(*bargs, 256, 256), 3, 1),
             "K3": cuda_ms(lambda: pfa.bwd_dkv_plain(*bargs, 256, 256), 3, 1),
         }
@@ -702,6 +776,8 @@ def main() -> int:
         keep = seg[:, None, :, None] == seg[:, None, None, :]          # (B,1,S,S)
         if causal:
             keep = keep & torch.ones(S, S, dtype=torch.bool, device=dev).tril()
+        if win:
+            keep = keep & torch.ones(S, S, dtype=torch.bool, device=dev).triu(-(win - 1))
         sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
             qs, k, v, attn_mask=keep, enable_gqa=G > 1)
         lib_fwd = cuda_ms(sdpa, 10)
@@ -739,7 +815,7 @@ def main() -> int:
                               "SDPA backward (fwd+bwd - fwd), dq and dk/dv together"))
             r = timing[(kn, shape)]
             log(f"[timing] {kn} {shape} (B={B} KH={KH} G={G} S={S} D={D} {dtype_tag(sh)} "
-                f"causal={causal}, {pfa.route_of(q.dtype)}): kernel "
+                f"causal={causal} window={win}, {pfa.route_of(q.dtype)}): kernel "
                 f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
                 f"({r['bound_by']}, {100 * r['bound_ms'] / r['ms']:.1f} % of it), "
                 f"{ops_ / r['ms'] / 1e9:.1f} TFLOP/s over the kept pairs")
@@ -824,16 +900,6 @@ def main() -> int:
         f"{t_exp:.4f} ms, {100 * t_exp / scan_t['K4'][0]:.1f} % of the kernel's "
         f"{scan_t['K4'][0]:.3f} ms")
 
-    # Launches at the gemma-shaped key (bf16, D 256, causal), summed over every
-    # training phase's 3 steps: each phase adds its counts before the next resets
-    # them.  No path trains head dim 256, so the sum reads 0 unless one does.
-    gemma_launches = {kn: 0 for kn in COUNTER}
-
-    def count_gemma():
-        for kn in COUNTER:
-            gemma_launches[kn] += pfa.LAUNCHES[(COUNTER[kn], pfa.route_of(torch.bfloat16),
-                                                GEMMA["D"], path_shapes["gemma"]["causal"])]
-
     def check_routes(tag):
         """Fail unless every K1/K2/K3 launch since the last reset took the
         tensor cores (the training paths run in bf16)."""
@@ -842,7 +908,43 @@ def main() -> int:
             raise SystemExit(f"{tag}: K1-K3 launches off the tensor cores: {off}")
         log(f"[{tag}] every K1/K2/K3 launch took the tensor cores")
 
-    def profile_step(fn, tag, shapes, step_s, scans=()):
+    def op_groups(events, cfg):
+        """Device ms in the traced step by group, from each op's own kernels:
+        the expert GEMMs (``bmm`` over the (E, ., .) expert batch), the MoE
+        dispatch (``DISPATCH_OPS`` on tensors without the vocab axis) and the
+        LM head (products with the vocab axis), forward, recompute and
+        backward alike; an op takes the group of its nearest grouped
+        ancestor."""
+        E, V = cfg.n_experts, cfg.vocab_size
+
+        def group_of(e):
+            while e is not None:
+                shapes = [tuple(x) for x in (e.input_shapes or []) if x]
+                has_v = any(V in x for x in shapes)
+                if E and e.name == "aten::bmm" and shapes and len(shapes[0]) == 3 \
+                        and shapes[0][0] == E:
+                    return "expert GEMMs"
+                if has_v and e.name in ("aten::mm", "aten::bmm", "aten::addmm"):
+                    return "LM head GEMMs"
+                if E and e.name in DISPATCH_OPS and not has_v:
+                    return "MoE dispatch"
+                e = e.cpu_parent
+            return "other"
+
+        ms, n, other = {}, {}, {}
+        for e in events:
+            own = [k for k in getattr(e, "kernels", [])]
+            if not own or e.device_type != torch.autograd.DeviceType.CPU:
+                continue
+            g = group_of(e)
+            t = sum(k.duration for k in own) / 1e3
+            ms[g] = ms.get(g, 0.0) + t
+            n[g] = n.get(g, 0) + len(own)
+            if g == "other":
+                other[e.name] = other.get(e.name, 0.0) + t
+        return ms, n, other
+
+    def profile_step(fn, tag, shapes, step_s, scans=(), model_cfg=None):
         """Run ``fn`` (one train step) under torch.profiler and print the
         device time per kernel name for K1-K3 at each of ``shapes`` that has
         attention and for the bf16 scan kernels ``scans`` at ``shapes[0]``
@@ -850,10 +952,13 @@ def main() -> int:
         device time, and
         the device's idle share: over the traced step (whose host side the
         profiler slows) and against ``step_s``, the untraced step's seconds.
-        A trace with no device events prints "not measured"."""
+        With ``model_cfg`` the trace records input shapes and ``op_groups``
+        prints its device ms by group.  A trace with no device
+        events prints "not measured"."""
         from torch.profiler import ProfilerActivity, profile, record_function
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=model_cfg is not None) as prof:
             with record_function("train_step"):
                 fn()
                 torch.cuda.synchronize()
@@ -931,6 +1036,13 @@ def main() -> int:
             log(f"[profile] {tag} {kn}: {tot / 1e3:.3f} ms device time a step over {n} "
                 f"launches, {tot / 1e3 / max(n, 1):.3f} ms per launch (isolated {iso:.3f} "
                 f"ms); {[nm[:70] for nm, _, _ in hits]}")
+        if model_cfg is not None:
+            ms, n, other = op_groups(events, model_cfg)
+            log(f"[profile] {tag} device ms by group in the step: " + ", ".join(
+                f"{g} {ms[g]:.3f} ({n[g]} kernels)" for g in sorted(ms, key=lambda g: -ms[g]))
+                + f"; their sum {sum(ms.values()):.3f} of the busy {busy / 1e3:.3f}; other, "
+                "by op: " + ", ".join(f"{op} {t:.3f}" for op, t in sorted(
+                    other.items(), key=lambda kv: -kv[1])[:8]))
         top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:10]
         for nm, (tot, n) in top:
             log(f"[profile] {tag} top: {tot / 1e3:9.3f} ms {n:5d} x {nm[:110]}")
@@ -988,7 +1100,6 @@ def main() -> int:
                 f"(rows: {b['text_mask'].sum(-1).tolist()} text)")
             if not math.isfinite(loss):
                 raise SystemExit(f"{tag}: non-finite loss")
-        count_gemma()
         # launches per kernel and per path shape, over the 3 steps, on the route
         # each kernel must take in bf16 (the tensor cores)
         counts = {(kn, shape): pfa.LAUNCHES[(COUNTER[kn], pfa.route_of(torch.bfloat16),
@@ -1125,7 +1236,6 @@ def main() -> int:
                 f"{seconds[-1]:.3f} s, tokens in segments per row {used}")
             if not math.isfinite(loss):
                 raise SystemExit(f"{name}: non-finite loss")
-        count_gemma()
         counts = {("K4", name): mamba_scan.LAUNCHES["fwd"],
                   ("K5", name): mamba_scan.LAUNCHES["bwd"],
                   ("K6", name): rwkv6_scan.LAUNCHES["fwd"],
@@ -1230,7 +1340,6 @@ def main() -> int:
             raise SystemExit(f"plan: step {i}'s groups do not cover its items once: "
                              f"{sc.groups}")
         q_seconds.append(r["seconds"])
-    count_gemma()
     n_q = {kn: pfa.LAUNCHES[(COUNTER[kn], pfa.route_of(torch.bfloat16), llm_cfg.head_dim,
                              True)] for kn in COUNTER}
     log(f"[plan] launches over 3 steps (D {llm_cfg.head_dim}, causal, S "
@@ -1245,11 +1354,6 @@ def main() -> int:
                  sum(q_seconds[1:]) / len(q_seconds[1:]))
     del params, steps_q, loader
     torch.cuda.empty_cache()
-    # the gemma-shaped attention is timed (phase 4); these are its launches on
-    # the five training paths
-    launches.update({(kn, "gemma"): n for kn, n in gemma_launches.items()})
-    log(f"[train] gemma-shaped (bf16, D {GEMMA['D']}, causal) launches over every training "
-        f"phase: {gemma_launches}")
 
     # 11. runtime: the closed control loop on the reference's 100M MLLM ---- #
     # (a) calibration from measured kernels: bench_kernel through the kernels'
@@ -1309,7 +1413,6 @@ def main() -> int:
         log(f"[runtime] {tag}: python -m repro_torch.train_mllm {' '.join(argv)}")
         run = m100_loop.run(m100_loop.parse_args(argv + ["--device", "cuda"]))
         ctl, steps = run["ctl"], run["steps"]
-        count_gemma()
         for st in steps:
             sc = st["schedule"]
             log(f"[runtime] {tag} step {st['step']}: loss {st['loss']:.5f}, "
@@ -1384,15 +1487,146 @@ def main() -> int:
         + ", ".join(f"{kn} {shape} {n} ({n / m100_steps:g}/step)"
                     for (kn, shape), n in m100_launches.items()))
 
-    # 12. summary ---------------------------------------------------------- #
+    # 12. archs: MoE and the registry's configs ------------------------- #
+    def train_arch(tag, cfg, key, cut):
+        """3 AdamW steps of ``cfg`` (``make_train_step(ModelConfig)``, the
+        capacity MoE path at FwdCtx's capacity factor) on ``arch_batches[key]``;
+        fails on a non-finite loss or MoE stat, unless K1, K2 and K3 each
+        launched at ``key``'s attention shape, or if any launch left the tensor
+        cores; then one more step under torch.profiler, by group.  Returns the
+        launches by (kernel, shape)."""
+        t0 = time.perf_counter()
+        params = model.init(cfg, seed=0, device=dev)
+        opt = optim.adamw_init(params)
+        n_params = sum(p.numel() for p in tree_leaves(params))
+        torch.cuda.synchronize()
+        sh = path_shapes[key]
+        n_blocks = cfg.n_layers // cfg.block_period
+        moe_note = (f", {cfg.n_experts} experts top-{cfg.top_k} of d_ff {cfg.d_ff} "
+                    f"(FFN pattern {cfg.ffn_pattern}), active {cfg.active_param_count() / 1e9:.3f} B"
+                    if cfg.n_experts else f", d_ff {cfg.d_ff} ({cfg.activation})")
+        log(f"[archs] {tag}: {n_params / 1e9:.3f} B params (fp32; param_count "
+            f"{cfg.param_count() / 1e9:.3f} B){moe_note}; {cfg.n_layers} layers of "
+            f"d{cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim} over {cfg.n_kv_heads} kv, "
+            f"vocab {cfg.vocab_size}; {cut}; {DEC_MB} x {sh['B']} rows x {sh['S']} "
+            f"tokens a step; init {time.perf_counter() - t0:.1f} s")
+        batches = [step.as_tensors(b, device=dev) for b in arch_batches[key]]
+        ctx = FwdCtx()
+        train_step = step.make_train_step(cfg, optim.AdamWConfig(), ctx=ctx)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        seconds = []
+        for i, b in enumerate(batches):
+            t0 = time.perf_counter()
+            params, opt, m = train_step(params, opt, b, 3e-4)
+            loss, drop, imb = (m[k].item() for k in ("loss", "moe_drop_rate", "moe_imbalance"))
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            used = (b["segment_ids"] > 0).sum(-1).tolist()
+            moe_stats = (f"moe_drop_rate {drop:.6f} (the reference's: the mean over MoE "
+                         f"layers / n_blocks {n_blocks}; x {n_blocks} = {drop * n_blocks:.6f}), "
+                         f"moe_imbalance {imb:.4f}, capacity factor {ctx.capacity_factor}; "
+                         if cfg.n_experts else "")
+            log(f"[archs] {tag} step {i}: loss {loss:.5f}, {seconds[-1]:.3f} s, {moe_stats}"
+                f"tokens in segments per row {used}")
+            if not math.isfinite(loss):
+                raise SystemExit(f"archs {tag}: non-finite loss")
+            if cfg.n_experts and not (math.isfinite(drop) and math.isfinite(imb)):
+                raise SystemExit(f"archs {tag}: non-finite MoE stats {drop}, {imb}")
+        counts = {(kn, key): pfa.LAUNCHES[(COUNTER[kn], pfa.route_of(torch.bfloat16),
+                                           sh["D"], sh["causal"])] for kn in COUNTER}
+        peak = torch.cuda.max_memory_allocated()
+        n = [counts[(kn, key)] for kn in COUNTER]
+        log(f"[archs] {tag} launches over 3 steps (D {sh['D']}, causal {sh['causal']}, window "
+            f"{sh.get('window', 0)}): K1 {n[0]}, K2 {n[1]}, K3 {n[2]} (per step {n[0] / 3:g}/"
+            f"{n[1] / 3:g}/{n[2] / 3:g}); all: {dict(pfa.LAUNCHES)}; max_memory_allocated "
+            f"{peak / 2**30:.2f} GiB")
+        if min(n) == 0:
+            raise SystemExit(f"archs {tag}: a kernel was not launched on the main path: {counts}")
+        check_routes(f"archs {tag}")
+        if peak >= 80e9:
+            raise SystemExit(f"archs {tag}: peak {peak / 1e9:.1f} GB is not under 80 GB")
+        profile_step(lambda: train_step(params, opt, batches[0], 3e-4), tag, (key,),
+                     sum(seconds[1:]) / len(seconds[1:]), model_cfg=cfg)
+        del params, opt, batches, train_step
+        torch.cuda.empty_cache()
+        return counts
+
+    # (a) Granite-MoE-3B-A800M, full size; (b) Mixtral-8x7B, full width, 2 of
+    # 32 layers
+    launches.update(train_arch("granite-moe-3b-a800m", granite_cfg, "granite",
+                               "full size"))
+    launches.update(train_arch("mixtral-8x7b", mixtral_cfg, "mixtral",
+                               f"full width, cut from {mixtral_full.n_layers} to "
+                               f"{mixtral_cfg.n_layers} layers"))
+
+    # (c) the capacity path against the dense oracle, one MoE layer of each at
+    # full width: nothing drops at capacity_factor = E / k; held to phase 6's
+    # path tolerances (loss 2e-4, ||g_capacity - g_dense|| / ||g_dense|| 5e-2
+    # over the gradients of x, the router and the experts), the output to the
+    # bf16 kernel pair (TOL); the capacity path run twice must be bitwise equal
+    for tag, cfg in (("granite-moe-3b-a800m", granite_cfg), ("mixtral-8x7b", mixtral_cfg)):
+        T = 8192
+        gen1 = torch.Generator(device=dev).manual_seed(5)
+        p1 = {k: v.requires_grad_(True) for k, v in moe.init(gen1, cfg).items()}
+        x = torch.randn(1, T, cfg.d_model, generator=gen1, device=dev).to(torch.bfloat16)
+        cf = cfg.n_experts / cfg.top_k
+
+        def run(impl):
+            xg = x.clone().requires_grad_(True)
+            for v in p1.values():
+                v.grad = None
+            t0 = time.perf_counter()
+            y, lb, st = moe.apply(p1, xg, cfg, impl=impl, capacity_factor=cf, with_stats=True)
+            # a loss that is not near zero: mean of y^2 (its gradient 2y/N)
+            loss = 0.5 * y.float().square().mean() + step.LB_LOSS_WEIGHT * lb
+            loss.backward()
+            torch.cuda.synchronize()
+            return dict(loss=loss.detach(), y=y.detach(), drop=st["drop_rate"].item(),
+                        grads=[xg.grad] + [p1[k].grad.clone() for k in sorted(p1)],
+                        s=time.perf_counter() - t0)
+
+        first, second, dense = run("capacity"), run("capacity"), run("dense")
+        names = ["x"] + sorted(p1)
+        same = torch.equal(first["y"], second["y"]) and torch.equal(
+            first["loss"], second["loss"]) and all(
+            torch.equal(a, b) for a, b in zip(first["grads"], second["grads"]))
+        rel_loss = abs(first["loss"].item() - dense["loss"].item()) / abs(dense["loss"].item())
+        gaps = [(a.float() - b.float()).norm().item() for a, b in
+                zip(first["grads"], dense["grads"])]
+        norm = math.sqrt(sum(b.float().norm().item() ** 2 for b in dense["grads"]))
+        rel_g = math.sqrt(sum(g * g for g in gaps)) / norm
+        log(f"[archs] oracle {tag}, 1 MoE layer, T {T}, capacity factor {cf:g} (drop "
+            f"{first['drop']}): loss capacity {first['loss'].item():.6f} vs dense "
+            f"{dense['loss'].item():.6f}, relative {rel_loss:.3e} (tol {PATH_TOL['loss']:.0e}); "
+            f"||g_capacity - g_dense|| / ||g_dense|| {rel_g:.3e} (tol {PATH_TOL['grads']:.0e}; "
+            f"by leaf " + ", ".join(f"{nm} {g / max(b.float().norm().item(), 1e-30):.2e}"
+                                    for nm, g, b in zip(names, gaps, dense["grads"]))
+            + f"); capacity run twice bitwise equal: {same}; fwd+bwd {first['s']:.3f} s "
+            f"capacity, {dense['s']:.3f} s dense")
+        check_pair(f"archs oracle {tag} y (capacity vs dense)",
+                   rel_errors(("y",), (first["y"],), (dense["y"],)), torch.bfloat16)
+        if first["drop"] != 0.0 or not (rel_loss <= PATH_TOL["loss"]
+                                        and rel_g <= PATH_TOL["grads"]):
+            raise SystemExit(f"archs oracle {tag}: the capacity path disagrees with the "
+                             f"dense oracle")
+        if not same:
+            raise SystemExit(f"archs oracle {tag}: the capacity path is not bitwise "
+                             f"repeatable")
+        del p1, x, first, second, dense
+        torch.cuda.empty_cache()
+
+    # (d) HuBERT-XLarge, full size, the encoder-only loss; (e) gemma-2b, full size
+    launches.update(train_arch("hubert-xlarge", hubert_cfg, "hubert", "full size"))
+    launches.update(train_arch("gemma-2b", gemma_cfg, "gemma", "full size"))
+
+    # 13. summary ---------------------------------------------------------- #
     kernels = []
     for (kn, shape), r in timing.items():
         kernels.append({
             "name": f"{kn}_{SCAN_NAME.get(kn) or COUNTER[kn]}[{shape}]", "route": "cuda",
             "source": CSRC + SOURCE[kn], "replaces": REPLACES[kn],
-            "launches": launches[(kn, shape)], "max_abs_err": max_err[(kn, shape)],
-            # the gemma-shaped rows are timed and compared, but no path trains them
-            "on_path": shape != "gemma", **r})
+            "launches": launches[(kn, shape)], "max_abs_err": max_err[(kn, shape)], **r})
     log(f"[summary] wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

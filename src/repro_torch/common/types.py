@@ -1,10 +1,11 @@
 """Configuration types of the port: the fields and properties of
-``ModelConfig`` / ``MLLMConfig`` that the training slice and the planner read
-(the parameter counts among them), with the same names and defaults as
-the reference, plus the device and dtype helpers that every entry point
-uses."""
+``ModelConfig`` / ``MLLMConfig`` that the models, the planner and the
+architecture registry read (the parameter counts among them), the assigned
+input shapes and ``reduced``, with the same names and defaults as the
+reference, plus the device and dtype helpers that every entry point uses."""
 from __future__ import annotations
 
+import dataclasses
 import enum
 import math
 from dataclasses import dataclass
@@ -21,6 +22,11 @@ class LayerKind(str, enum.Enum):
     RWKV6 = "rwkv6"
 
 
+class AttentionKind(str, enum.Enum):
+    FULL = "full"            # full causal (or bidirectional for encoders)
+    SLIDING = "sliding"      # sliding-window causal attention
+
+
 class FFNKind(str, enum.Enum):
     DENSE = "dense"
     MOE = "moe"
@@ -28,7 +34,7 @@ class FFNKind(str, enum.Enum):
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """One transformer stack (decoder LLM or encoder)."""
+    """One transformer stack (decoder LLM, encoder, or SSM/hybrid)."""
 
     name: str
     family: str
@@ -79,11 +85,28 @@ class ModelConfig:
         return (pat * reps)[: self.n_layers]
 
     @property
+    def is_attention_free(self) -> bool:
+        return all(k != LayerKind.ATTENTION for k in self.layer_kinds)
+
+    @property
     def block_period(self) -> int:
         """Smallest tiling period of (layer_pattern, ffn_pattern)."""
         a, b = len(self.layer_pattern), len(self.ffn_pattern)
         period = a * b // math.gcd(a, b)
         return period if self.n_layers % period == 0 else self.n_layers
+
+    @property
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic sequence mixing (SSM / hybrid / sliding window)."""
+        if self.is_attention_free:
+            return True
+        if any(k != LayerKind.ATTENTION for k in self.layer_kinds):
+            return True  # hybrid
+        return self.attention_kind == AttentionKind.SLIDING.value
+
+    @property
+    def is_decoder(self) -> bool:
+        return self.causal
 
     # -- parameter counting (exact, mirrors init) ----------------------- #
     def param_count(self) -> int:
@@ -167,6 +190,56 @@ class MLLMConfig:
         else:
             total += de * dl
         return total
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    """One assigned input shape."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+INPUT_SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
+
+
+def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
+    """A smoke-test-sized variant of the same family (<=2 layers, d<=512)."""
+    d_model = min(cfg.d_model, 256)
+    head_dim = 32 if cfg.n_heads else 0
+    n_heads = min(cfg.n_heads, 4) if cfg.n_heads else 0
+    n_kv = max(1, min(cfg.n_kv_heads, n_heads)) if cfg.n_heads else 0
+    period = len(cfg.layer_pattern)
+    n_layers = min(cfg.n_layers, max(2, period)) if period > 2 else 2
+    base = dataclasses.replace(
+        cfg,
+        name=cfg.name + "-smoke",
+        n_layers=n_layers,
+        d_model=d_model,
+        n_heads=n_heads,
+        n_kv_heads=n_kv,
+        head_dim=head_dim,
+        d_ff=min(cfg.d_ff, 512),
+        vocab_size=min(cfg.vocab_size, 512),
+        n_experts=min(cfg.n_experts, 4) if cfg.n_experts else 0,
+        top_k=min(cfg.top_k, 2) if cfg.top_k else 0,
+        window_size=min(cfg.window_size, 64) if cfg.window_size else 0,
+        rwkv_head_dim=32 if cfg.layer_pattern[0] == "rwkv6" else cfg.rwkv_head_dim,
+        dtype="float32",
+        param_dtype="float32",
+    )
+    return dataclasses.replace(base, **overrides) if overrides else base
 
 
 def torch_dtype(name: str) -> torch.dtype:

@@ -1,13 +1,14 @@
 """internvl2-2b [vlm] — InternViT encoder + InternLM2-1.8b backbone:
 24L d_model=2048 16H (GQA kv=8) d_ff=8192 vocab=92553.  [arXiv:2404.16821]
 
-The port's copy of the reference configuration (without the registry).  The
-ViT patchifier is a stub (the batch supplies 1024-dim patch embeddings); the
-InternViT-300M transformer (24L d=1024) and the InternLM2 backbone are
-implemented.  InternVL's pixel-shuffle reduces 1024 patches/image to 256 LLM
-tokens — the connector's downsample.
+The port's copy of the reference configuration.  The ViT patchifier is a
+stub (the batch supplies 1024-dim patch embeddings); the InternViT-300M
+transformer (24L d=1024) and the InternLM2 backbone are implemented.
+InternVL's pixel-shuffle reduces 1024 patches/image to 256 LLM tokens — the
+connector's downsample.
 """
 from repro_torch.common.types import MLLMConfig, ModalityStub, ModelConfig
+from repro_torch.configs.common import ArchSpec, register
 
 PATCH_EMBED_DIM = 1024
 PATCHES_PER_IMAGE = 1024            # 448x448 / 14 -> 32x32 patches
@@ -50,3 +51,14 @@ CFG = MLLMConfig(
     connector_hidden=2048,
     tokens_per_item_out=LLM_TOKENS_PER_IMAGE,
 )
+
+SPEC = register(ArchSpec(
+    arch_id="internvl2-2b",
+    desc=CFG,
+    citation="arXiv:2404.16821 (InternVL 1.5/2)",
+    notes="Full DFLOP applies: independent (tp, pp, dp) per module + "
+          "inter-model communicator at the connector boundary. decode "
+          "shapes exercise the LLM backbone; long_500k skipped (full "
+          "attention).",
+    tokens_per_media_item=LLM_TOKENS_PER_IMAGE,
+))

@@ -5,11 +5,11 @@ vocab=65536, MoE 16 experts top-2, Mamba:attention 1:7 interleave.
 Layer structure (period 8, matching the paper's Jamba block): attention at
 in-block index 4, Mamba elsewhere; MoE replaces the FFN on every other layer.
 
-The port's copy of the reference configuration (without the registry).
-Callers cut depth, and drop the experts the port does not have yet, with
+The port's copy of the reference configuration.  Callers cut depth with
 ``dataclasses.replace``.
 """
 from repro_torch.common.types import ModelConfig
+from repro_torch.configs.common import ArchSpec, register
 
 CFG = ModelConfig(
     name="jamba-v0.1-52b",
@@ -31,3 +31,13 @@ CFG = ModelConfig(
     ssm_d_conv=4,
     ssm_expand=2,
 )
+
+SPEC = register(ArchSpec(
+    arch_id="jamba-v0.1-52b",
+    desc=CFG,
+    citation="arXiv:2403.19887 (Jamba)",
+    notes="Hybrid: 4 attention layers of 32 -> decode state is Mamba states "
+          "+ 4 KV caches; long_500k runs (sub-quadratic prefill dominated by "
+          "Mamba scan; decode reads 4 x 500k KV). 16 experts divide the "
+          "16-wide model axis -> true expert parallelism.",
+))

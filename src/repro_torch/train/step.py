@@ -1,5 +1,5 @@
-"""Train step for an MLLM or a plain decoder: loss over microbatches with
-fp32 gradient accumulation, then AdamW.
+"""Train step for an MLLM, a decoder or an encoder-only model: loss over
+microbatches with fp32 gradient accumulation, then AdamW.
 
 The global batch arrives pre-partitioned into N_mb microbatches (leading
 axis); the step loops over them, accumulating fp32 gradients in the
@@ -28,7 +28,9 @@ def make_loss_fn(desc: MLLMConfig | ModelConfig, ctx: FwdCtx | None = None,
     """loss_fn(params, mb).  An ``MLLMConfig`` takes the multimodal batch of
     ``MixedDataset.materialize``; a decoder ``ModelConfig`` takes packed rows
     (``tokens``, ``labels`` and optional ``positions``, ``segment_ids``, as
-    ``data.packing`` makes them)."""
+    ``data.packing`` makes them); an encoder-only ``ModelConfig`` (one with
+    ``input_embed_dim``) takes ``frame_embeds``, ``labels`` (-1 where
+    unmasked) and optional ``segment_ids``."""
     ctx = ctx or FwdCtx(mode="train")
 
     def finish(ce, aux):
@@ -43,8 +45,13 @@ def make_loss_fn(desc: MLLMConfig | ModelConfig, ctx: FwdCtx | None = None,
         return loss_fn
 
     if desc.input_embed_dim > 0:
-        raise NotImplementedError(
-            "the encoder-only (masked prediction) loss is not ported yet")
+        # encoder-only masked prediction (HuBERT-style): labels -1 = unmasked
+        def loss_fn(params, mb):
+            out, _, aux = model_lib.forward(
+                params, desc, embeds=mb["frame_embeds"],
+                segment_ids=mb.get("segment_ids"), ctx=ctx)
+            return finish(cross_entropy(out, mb["labels"]), aux)
+        return loss_fn
 
     def loss_fn(params, mb):
         logits, _, aux = model_lib.forward(

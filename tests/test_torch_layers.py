@@ -158,10 +158,21 @@ def test_model_forward(kind):
 
 
 def test_unported_layers_raise():
-    _, cfg = _cfgs(layer_pattern=("attention", "mamba"), ffn_pattern=("dense", "moe"),
-                   n_experts=4, top_k=2)
-    with pytest.raises(NotImplementedError, match="dense FFNs"):
-        model.init(cfg, device="cpu")
+    """MoE layers, once refused here, now build the reference's tree (a
+    hybrid with MoE on every other layer); what still raises is an
+    attention implementation the port does not have."""
+    jcfg, cfg = _cfgs(layer_pattern=("attention", "mamba"), ffn_pattern=("dense", "moe"),
+                      n_experts=4, top_k=2)
+    got = model.init(cfg, device="cpu")
+    want = jmodel.init(jax.random.PRNGKey(0), jcfg)
+    assert [sorted(lp) for lp in got["layers"]] == [
+        ["attn", "ffn", "ln1", "ln2"], ["ln1", "ln2", "mamba", "moe"]]
+    assert jax.tree.map(lambda a: tuple(a.shape), got) == jax.tree.map(
+        lambda a: tuple(a.shape), params_from_jax(jax.tree.map(np.asarray, want), cfg,
+                                                  device="cpu"))
+    with pytest.raises(ValueError, match="attention impl"):
+        model.forward(got, cfg, tokens=torch.zeros((1, 8), dtype=torch.int32),
+                      ctx=model.FwdCtx(attn_impl="pallas"))
 
 
 def test_params_from_jax_keeps_layouts():

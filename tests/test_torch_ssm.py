@@ -282,6 +282,17 @@ def test_three_train_steps_track_reference(kind):
 
 
 def test_encoder_only_loss_stays_unported():
-    _, cfg = _cfgs("rwkv6", input_embed_dim=16)
-    with pytest.raises(NotImplementedError, match="encoder-only"):
-        step.make_loss_fn(cfg)
+    """The encoder-only (masked prediction) loss, once refused here, now
+    runs: on the tiny RWKV6 stack fed 16-dim frame embeddings it gives the
+    reference's loss (tests/test_torch_configs.py trains the reduced
+    HuBERT-XLarge with it)."""
+    jcfg, cfg = _cfgs("rwkv6", input_embed_dim=16)
+    jp = _jax_params(jcfg, 4)
+    rng = np.random.default_rng(2)
+    mb = {"frame_embeds": _np(3, 2, S, 16),
+          "labels": np.where(rng.random((2, S)) < 0.5, -1,
+                             rng.integers(0, VOCAB, (2, S))).astype(np.int32)}
+    want = jstep.make_loss_fn(jcfg, jmodel.FwdCtx(mode="train", ssm_impl="xla"))(jp, mb)
+    params = params_from_jax(jax.tree.map(np.asarray, jp), cfg, device="cpu")
+    got = step.make_loss_fn(cfg)(params, {k: _t(v) for k, v in mb.items()})
+    np.testing.assert_allclose(got.item(), float(want), rtol=STACK_TOL, atol=STACK_TOL)
