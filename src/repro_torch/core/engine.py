@@ -16,8 +16,9 @@ Closed-loop operation (repro_torch.runtime) adds observe → re-plan on top:
         ctl.observe_step(out, measured_s)    # telemetry + drift feedback
 
 The port prices with ``AnalyticBackend(H100)`` unless a backend is given.
-The reference's serving loop, ``serving()``, needs ``serve/``, which the
-port does not have yet: it raises ``NotImplementedError``.
+``serving(backend="real")`` runs the model through
+``repro_torch.serve.real.RealBackend`` on the card unless ``devices`` says
+otherwise.
 """
 from __future__ import annotations
 
@@ -175,6 +176,62 @@ class DFLOPEngine:
             fleet=fleet)
 
     # ------------------------------------------------------------------ #
-    def serving(self, **kw):
-        raise NotImplementedError(
-            "the serving loop (serve/) is not ported yet")
+    def serving(self, *, admission: str = "slo", serve_cfg=None,
+                calibrate: bool = True, trace: bool = True,
+                drift=True, backend="emulated", model_params=None,
+                model_cfg=None, max_len: int = 128, chunk: int = 16,
+                devices=None, warmup: bool = True):
+        """Serving-side closed loop: returns a `repro_torch.serve.ServeEngine`
+        whose admission pricing runs through this engine's profiled
+        `PerfModel` (``profile()`` first).  ``admission``: ``"slo"``
+        (data-aware `SLOAdmission`) or ``"fifo"`` (baseline); the trace /
+        metrics / calibrator / Page–Hinkley wiring mirrors ``runtime()``.
+
+        ``backend`` selects the execution layer: ``"emulated"`` (the
+        discrete-event model), ``"real"`` (prefill/decode on the model via
+        `repro_torch.serve.real.RealBackend` — requires ``model_params``, and
+        ``model_cfg`` when it differs from ``llm_cfg``; ``max_len`` /
+        ``chunk`` / ``devices`` / ``warmup`` pass through), or an
+        `ExecutionBackend` *factory* ``f(pricer, cfg) -> backend``.
+        ``drift`` may be a bool or a ready `PageHinkley` (the real loop
+        usually wants a shorter burn-in than the emulation's default).
+        The real loop widens the calibrator's ratio clip: its "prefill"
+        cells convert perf-model accelerator-seconds into measured host
+        wall-seconds, a ratio far beyond the in-family default of 8×."""
+        assert self.perf is not None, "call profile() first"
+        from repro_torch.runtime import (OnlineCalibrator, RuntimeMetrics,
+                                         TraceRecorder)
+        from repro_torch.runtime.drift import PageHinkley
+        from repro_torch.serve import (FIFOAdmission, PrefillPricer,
+                                       ServeConfig, ServeEngine)
+        cfg = serve_cfg if serve_cfg is not None else ServeConfig()
+        if not calibrate:
+            cal = None
+        elif backend == "real":
+            cal = OnlineCalibrator(max_ratio=1e9, min_obs=1)
+        else:
+            cal = OnlineCalibrator()
+        pricer = PrefillPricer(self.perf, self.tokens_per_media_item,
+                               tp=cfg.tp, calibrator=cal)
+        if backend == "emulated":
+            be = None                    # ServeEngine's EmulatedBackend
+        elif backend == "real":
+            assert model_params is not None, "real backend needs params"
+            from repro_torch.serve.real import RealBackend
+            be = RealBackend(model_cfg if model_cfg is not None
+                             else self.llm_cfg, model_params, pricer, cfg,
+                             max_len=max_len, chunk=chunk, devices=devices,
+                             warmup=warmup)
+        else:
+            be = backend(pricer, cfg)
+        ph = drift if isinstance(drift, PageHinkley) \
+            else (PageHinkley() if drift else None)
+        eng = ServeEngine(
+            pricer, cfg, backend=be,
+            admission=(FIFOAdmission() if admission == "fifo" else None),
+            calibrator=cal,
+            drift=ph,
+            trace=TraceRecorder(enabled=trace,
+                                process_name="dflop-serve"),
+            metrics=RuntimeMetrics())
+        return eng

@@ -30,13 +30,16 @@ def packed_flash_attention(q, k, v, *, segment_ids=None, causal=True,
 
 def rwkv6_scan(r, k, v, w, u):
     """r, k, v, w: (B, S, H, M); u: (H, M).  Returns (y (B, S, H, M), final
-    state (B, H, M, M) f32)."""
+    state (B, H, M, M) f32).  u goes in as fp32, as the kernels take it (a
+    bf16 parameter converts exactly)."""
     rt, kt, vt, wt = (t.permute(0, 2, 1, 3) for t in (r, k, v, w))
-    y, s = rwkv6_scan_bhsm(rt, kt, vt, wt, u)
+    y, s = rwkv6_scan_bhsm(rt, kt, vt, wt, u.float())
     return y.permute(0, 2, 1, 3), s
 
 
 def mamba_scan(u, dt, B_t, C_t, A, D):
     """u, dt: (B, S, di); B_t, C_t: (B, S, N); A: (di, N); D: (di,).
-    Returns (y (B, S, di), None) — no final state, as in the reference."""
-    return mamba_scan_bsd(u, dt, B_t, C_t, A, D), None
+    Returns (y (B, S, di), None) — no final state, as in the reference.  A
+    and D go in as fp32, as the kernels take them (a bf16 parameter
+    converts exactly)."""
+    return mamba_scan_bsd(u, dt, B_t, C_t, A.float(), D.float()), None

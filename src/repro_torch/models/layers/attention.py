@@ -1,5 +1,4 @@
-"""GQA/MQA attention with packing-aware masking and sliding window (the
-train branch of the reference layer; the decode cache comes later).
+"""GQA/MQA attention with packing-aware masking, sliding window and caches.
 
 Implementations of the same math, chosen by ``impl``:
 
@@ -11,6 +10,9 @@ Implementations of the same math, chosen by ``impl``:
 
 ``block`` tiles the plain versions; the CUDA kernels tile at a fixed 64 × 64
 and ignore it.  Outputs do not depend on either.
+
+Decode (one token against a KV cache) is plain PyTorch, as the reference's
+``attend_cache`` is plain ``jnp``: no kernel lies on that branch.
 """
 from __future__ import annotations
 
@@ -73,14 +75,102 @@ def attend_naive(q, k, v, *, causal=True, window=0, seg_q=None, seg_k=None,
     return out.reshape(B, Sq, H, D).to(q.dtype)
 
 
+# --------------------------------------------------------------------------- #
+# Decode against a KV cache
+# --------------------------------------------------------------------------- #
+def attend_cache(q, cache_k, cache_v, kpos, pos, *, window=0, scale=None):
+    """Single-step decode. q: (B,1,H,D); cache_k/v: (B,C,Kh,D); kpos: (B,C).
+
+    ``pos`` is a scalar (lockstep batch) or a ``(B,)`` tensor: each row
+    attends only to its own entries, ``kpos[b] <= pos[b]``.  The scores and
+    the p·V product accumulate in the cache dtype, the softmax runs in fp32
+    (exact when caches are fp32), as in the reference."""
+    B, _, H, D = q.shape
+    Kh = cache_k.shape[2]
+    G = H // Kh
+    scale = scale if scale is not None else D ** -0.5
+    qg = q.reshape(B, Kh, G, D).to(cache_k.dtype)
+    s = torch.einsum("bkgd,bskd->bkgs", qg, cache_k).float() * scale
+    pos_b = check_decode_pos(pos, B, q.device)[:, None]             # (B, 1)
+    valid = (kpos >= 0) & (kpos <= pos_b)
+    if window and window > 0:
+        valid = valid & (pos_b - kpos < window)
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p.to(cache_v.dtype), cache_v)
+    return out.reshape(B, 1, H, D).to(q.dtype)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
+               device="cuda"):
+    """KV cache for one attention layer.  Sliding-window archs use a ring of
+    ``min(max_len, window)`` slots (write at ``pos % C``); ``kpos`` is per row
+    ``(batch, C)``, -1 where a slot holds nothing."""
+    C = min(max_len, cfg.window_size) if cfg.window_size else max_len
+    shape = (batch, C, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "kpos": torch.full((batch, C), -1, dtype=torch.int32, device=device)}
+
+
+def kv_cache_bytes(cfg: ModelConfig, seq_len: int,
+                   bytes_per_value: int = 2) -> float:
+    """Bytes of live KV state for one request at context ``seq_len`` (K + V
+    across all layers): the payload a prefill→decode handoff moves."""
+    kv_heads = cfg.n_kv_heads or cfg.n_heads or 1
+    head_dim = cfg.head_dim or (cfg.d_model // max(cfg.n_heads, 1))
+    return 2.0 * cfg.n_layers * kv_heads * head_dim \
+        * bytes_per_value * seq_len
+
+
+def check_decode_pos(pos, B: int, device=None):
+    """The decode-position contract: a scalar (rows in lockstep) or a ``(B,)``
+    vector of per-row positions.  Returns the ``(B,)`` int32 form; any other
+    shape raises (a ``(B, 1)`` array would write KV rows at the wrong slots)."""
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=device)
+    if pos.ndim == 0:
+        return pos.expand(B)
+    if tuple(pos.shape) != (B,):
+        raise ValueError(
+            f"decode_pos must be a scalar or shape ({B},), got {tuple(pos.shape)}")
+    return pos
+
+
+def cache_write(cache, k_new, v_new, pos):
+    """Write one token (k_new: (B,1,Kh,D)) at each row's ring slot
+    ``pos % C``, in place; returns the cache."""
+    B, C = cache["k"].shape[0], cache["k"].shape[1]
+    pos_b = check_decode_pos(pos, B, cache["k"].device)
+    slot = (pos_b % C).long()
+    rows = torch.arange(B, device=slot.device)
+    cache["k"][rows, slot] = k_new[:, 0].to(cache["k"].dtype)
+    cache["v"][rows, slot] = v_new[:, 0].to(cache["v"].dtype)
+    cache["kpos"][rows, slot] = pos_b
+    return cache
+
+
 def apply(params, x, cfg: ModelConfig, *, positions=None, segment_ids=None,
-          impl: str = "kernel", block: int = 512):
-    """Self-attention layer, train/prefill branch: x (B,S,d) -> (B,S,d)."""
+          cache=None, decode_pos=None, impl: str = "kernel", block: int = 512):
+    """Self-attention layer.
+
+    Train/prefill: ``cache`` is None, x is (B,S,d); returns y (B,S,d).
+    Decode: ``cache`` is the layer cache, x is (B,1,d), ``decode_pos`` a
+    scalar or a (B,) tensor of per-row positions; returns (y, cache), the
+    cache written in place."""
     B, S, _ = x.shape
     window = cfg.window_size if cfg.attention_kind == "sliding" else 0
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(x.dtype))
     k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(x.dtype))
     v = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(x.dtype))
+    if cache is not None:
+        pos = check_decode_pos(decode_pos, B, x.device)
+        if cfg.use_rope:
+            q = apply_rope(q, pos[:, None], cfg.rope_theta)
+            k = apply_rope(k, pos[:, None], cfg.rope_theta)
+        cache = cache_write(cache, k, v, pos)
+        out = attend_cache(q, cache["k"], cache["v"], cache["kpos"], pos,
+                           window=window)
+        return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype)), cache
     if positions is None:
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
     if cfg.use_rope:

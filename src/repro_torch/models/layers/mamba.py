@@ -1,5 +1,4 @@
-"""Mamba-1 selective-state-space block (Jamba's SSM half), the train
-branch of the reference layer (no decode cache).
+"""Mamba-1 selective-state-space block (Jamba's SSM half).
 
 Recurrence (per channel c, state dim n):
     h_t = exp(dt_t * A) ⊙ h_{t-1} + (dt_t * x_t) ⊗ B_t
@@ -10,7 +9,12 @@ Implementations of the scan, chosen by ``impl``:
   * ``naive``  — ``ssm_scan_xla``, a Python loop over time that autograd
                  differentiates (the reference's XLA scan);
   * ``kernel`` — the selective-scan kernels K4/K5 (``kernels/mamba_scan.py``):
-                 CUDA on a CUDA tensor, their plain versions on a CPU tensor.
+                 CUDA on a CUDA tensor, their plain versions on a CPU tensor;
+  * ``chunked`` — ``ssm_scan_chunked``, the reference's closed-form chunked
+                 XLA scan in plain PyTorch (used outside training).
+
+Decode carries (conv window, ssm state) in a cache and steps them in plain
+PyTorch, whatever ``impl`` says.
 
 The causal convolution and the scan run across packed segment boundaries,
 as in the reference (``segment_ids`` is not read).
@@ -25,7 +29,7 @@ import torch.nn.functional as F
 from repro_torch.common.types import ModelConfig
 from repro_torch.kernels import ops as kops
 
-IMPLS = ("naive", "kernel")
+IMPLS = ("naive", "kernel", "chunked")
 
 
 def dims(cfg: ModelConfig):
@@ -86,6 +90,71 @@ def ssm_scan_xla(u, dt, B_t, C_t, A, D):
     return y.to(u.dtype), h
 
 
+def ssm_scan_chunked(u, dt, B_t, C_t, A, D, *, chunk: int = 32, h0=None):
+    """Chunked selective scan: sequential only across chunks.
+
+    With T_t = Σ_{s≤t} dt_s (per channel), the recurrence solves to
+        y_tc = Σ_n C_tn [ e^{A_cn T_tc} h0_cn
+                          + Σ_{j≤t} e^{A_cn (T_tc − T_jc)} dt_jc u_jc B_jn ]
+    Exponents are ≤ 0 (A < 0, T monotone), so the closed intra-chunk form is
+    stable.  The chunk is the largest divisor of S not above ``chunk``.
+
+    u, dt: (B, S, di); B_t, C_t: (B, S, N); A: (di, N); D: (di,).
+    Returns (y (B,S,di) in u's dtype, final state (B,di,N) f32)."""
+    b, S, di = u.shape
+    N = A.shape[1]
+    c = min(chunk, S)
+    while S % c:
+        c -= 1
+    n = S // c
+
+    def chunks(t):
+        return t.float().reshape(b, n, c, t.shape[-1]).transpose(0, 1)
+
+    uc, dtc, Bc, Cc = map(chunks, (u, dt, B_t, C_t))     # (n,b,c,·)
+    A32 = A.float()
+    D32 = D.float()
+    h = h0 if h0 is not None else torch.zeros((b, di, N), dtype=torch.float32,
+                                              device=u.device)
+    tri = torch.ones((c, c), dtype=torch.bool, device=u.device).tril()  # j <= t
+    ys = []
+    for u_, dt_, b_, c_ in zip(uc, dtc, Bc, Cc):           # (b,c,di) / (b,c,N)
+        T = torch.cumsum(dt_, dim=1)                       # (b,c,di)
+        # inter-chunk: y_inter_tc = sum_n C_tn e^{A_cn T_tc} h_cn
+        decay_T = torch.exp(T[..., None] * A32[None, None])           # (b,c,di,N)
+        y = torch.einsum("btn,btcn,bcn->btc", c_, decay_T, h)
+        # intra-chunk: E_{tjcn} = e^{A_cn (T_t - T_j)}, j <= t
+        dT = T[:, :, None, :] - T[:, None, :, :]                     # (b,t,j,di)
+        E = torch.exp(dT[..., None] * A32[None, None, None])         # (b,t,j,di,N)
+        E = torch.where(tri[None, :, :, None, None], E, 0.0)
+        w = dt_ * u_                                                  # (b,j,di)
+        y = y + torch.einsum("btn,btjcn,bjc,bjn->btc", c_, E, w, b_)
+        ys.append(y + u_ * D32[None, None])
+        # state hand-off
+        Tc = T[:, -1]                                                 # (b,di)
+        Ec = torch.exp((Tc[:, None, :] - T)[..., None] * A32[None, None])  # (b,c,di,N)
+        h = h * torch.exp(Tc[..., None] * A32[None]) + \
+            torch.einsum("bjcn,bjc,bjn->bcn", Ec, w, b_)
+    y = torch.stack(ys, 1).reshape(b, S, di)
+    return y.to(u.dtype), h
+
+
+def init_cache(cfg: ModelConfig, batch: int, dtype=torch.float32, device="cuda"):
+    di, R, N, K = dims(cfg)
+    return {"conv": torch.zeros((batch, K - 1, di), dtype=dtype, device=device),
+            "ssm": torch.zeros((batch, di, N), dtype=torch.float32, device=device)}
+
+
+def _conv_step(conv_state, x_t, conv_w, conv_b):
+    """conv_state: (B, K-1, di); x_t: (B, di) -> (y_t, new_state).  Types
+    promote as the reference's do (an fp32 window over a bf16 token runs in
+    fp32, the weights rounded to the token's type first)."""
+    window = torch.cat([conv_state, x_t[:, None]], dim=1)             # (B,K,di)
+    w = conv_w.to(x_t.dtype).to(window.dtype)
+    y = torch.einsum("bkc,ck->bc", window, w) + conv_b
+    return y, window[:, 1:]
+
+
 def _project(params, x, cfg: ModelConfig):
     di = dims(cfg)[0]
     xz = x @ params["in_proj"].to(x.dtype)
@@ -101,10 +170,29 @@ def _bcdt(params, u, cfg: ModelConfig):
     return dt, B_t, C_t
 
 
-def apply(params, x, cfg: ModelConfig, *, impl: str = "kernel"):
-    """x: (B, S, d) -> (B, S, d), training / prefill without a cache."""
+def apply(params, x, cfg: ModelConfig, *, cache=None, impl: str = "kernel"):
+    """x: (B, S, d) -> (B, S, d), training / prefill without a cache; or
+    x (B, 1, d) with the layer's cache -> ((B, 1, d), the cache), its conv
+    window and state written in place."""
     A = -torch.exp(params["A_log"].float())
     D = params["D"]
+    if cache is not None:
+        x_t = x[:, 0]
+        u, z = _project(params, x_t, cfg)
+        u_c, conv_state = _conv_step(cache["conv"], u, params["conv_w"],
+                                     params["conv_b"])
+        u_c = F.silu(u_c)
+        dt, B_t, C_t = _bcdt(params, u_c, cfg)
+        decay = torch.exp(dt.float()[..., None] * A[None])
+        h = cache["ssm"] * decay + (dt * u_c).float()[..., None] \
+            * B_t.float()[:, None, :]
+        y = torch.einsum("bcn,bn->bc", h, C_t.float())
+        y = y + u_c.float() * D.float()[None]
+        y = y.to(x.dtype) * F.silu(z)
+        out = y @ params["out_proj"].to(x.dtype)
+        cache["conv"].copy_(conv_state)
+        cache["ssm"].copy_(h)
+        return out[:, None], cache
     u, z = _project(params, x, cfg)
     u = F.silu(causal_conv(u, params["conv_w"], params["conv_b"]))
     dt, B_t, C_t = _bcdt(params, u, cfg)
@@ -112,6 +200,8 @@ def apply(params, x, cfg: ModelConfig, *, impl: str = "kernel"):
         y, _ = kops.mamba_scan(u, dt, B_t, C_t, A, D)
     elif impl == "naive":
         y, _ = ssm_scan_xla(u, dt, B_t, C_t, A, D)
+    elif impl == "chunked":
+        y, _ = ssm_scan_chunked(u, dt, B_t, C_t, A, D)
     else:
         raise ValueError(f"selective-scan impl {impl!r} not in {IMPLS}")
     y = y * F.silu(z)

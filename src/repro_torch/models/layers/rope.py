@@ -7,8 +7,9 @@ import torch
 def rope_freqs(head_dim: int, theta: float = 10_000.0, device=None):
     half = head_dim // 2
     exponent = torch.arange(0, half, dtype=torch.float32, device=device) / half
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                        device=device), exponent)
+    # torch.full, not torch.tensor: no blocking host-to-device copy a call
+    return 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32,
+                                      device=device), exponent)
 
 
 def apply_rope(x, positions, theta: float = 10_000.0):

@@ -15,10 +15,18 @@ Layers run in a Python loop where the reference scans over blocks of
 (``torch.utils.checkpoint``, non-reentrant) where the reference wraps each
 block in ``jax.checkpoint``; a checkpointed layer returns its first
 forward's MoE stats (the recompute's outputs are discarded).
+
+Decode caches mirror the params: a list with one dict per layer,
+``{"attn": ...}``, ``{"mamba": ...}`` or ``{"rwkv": ...}`` (the reference
+stacks them per pattern position, ``pos{j}``, with a leading ``n_blocks``
+axis).  A decode step writes each layer's cache in place and returns the
+list.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
+from typing import Any
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -34,13 +42,15 @@ from repro_torch.models.layers import (attention, embed, ffn, mamba, moe,
 class FwdCtx:
     """Per-call forward options."""
 
-    mode: str = "train"              # train | prefill
+    mode: str = "train"              # train | prefill | decode
     attn_impl: str = "kernel"        # naive | kernel
     attn_block: int = 512            # tile of the plain attention versions
-    ssm_impl: str = "kernel"         # naive | kernel (Mamba and RWKV6 scans)
+    ssm_impl: str = "kernel"         # naive | kernel | chunked (Mamba, RWKV6)
     moe_impl: str = "capacity"       # dense | capacity
     capacity_factor: float = 2.0     # (moe.apply's own default is 1.25)
     moe_chunk_tokens: int = 0        # >0: chunked+checkpointed dispatch
+    return_hidden: bool = False      # skip the LM head
+    decode_pos: Any = None           # scalar or (B,) positions in decode mode
     remat: bool = True
 
 
@@ -65,20 +75,35 @@ def _layer_init(gen, cfg: ModelConfig, kind: LayerKind, ffn_kind: FFNKind,
 
 
 def _layer_apply(lp, x, cfg: ModelConfig, kind: LayerKind, ffn_kind: FFNKind,
-                 ctx: FwdCtx, positions, segment_ids):
+                 ctx: FwdCtx, positions, segment_ids, cache=None):
     """Returns (x, moe_out): moe_out is None for a layer without MoE, else
-    (lb, drop_rate, imbalance), the two stats detached."""
+    (lb, drop_rate, imbalance), the two stats detached.  With the layer's
+    ``cache`` (decode) the layer writes it in place."""
     h = norms.rms_apply(lp["ln1"], x, cfg.norm_eps)
     if kind == LayerKind.ATTENTION:
-        x = x + attention.apply(lp["attn"], h, cfg, positions=positions,
+        if cache is None:
+            y = attention.apply(lp["attn"], h, cfg, positions=positions,
                                 segment_ids=segment_ids, impl=ctx.attn_impl,
                                 block=ctx.attn_block)
+        else:
+            y, _ = attention.apply(lp["attn"], h, cfg, cache=cache["attn"],
+                                   decode_pos=ctx.decode_pos)
     elif kind == LayerKind.MAMBA:
-        x = x + mamba.apply(lp["mamba"], h, cfg, impl=ctx.ssm_impl)
+        # the chunked scan only outside training, as in the reference
+        impl = "naive" if ctx.mode == "train" and ctx.ssm_impl == "chunked" \
+            else ctx.ssm_impl
+        if cache is None:
+            y = mamba.apply(lp["mamba"], h, cfg, impl=impl)
+        else:
+            y, _ = mamba.apply(lp["mamba"], h, cfg, cache=cache["mamba"], impl=impl)
     else:
-        x = x + rwkv6.time_mix(lp["rwkv"], h, cfg, impl=ctx.ssm_impl)
+        r_cache = None if cache is None else cache["rwkv"]
+        y = rwkv6.time_mix(lp["rwkv"], h, cfg, cache=r_cache, impl=ctx.ssm_impl)
+        x = x + (y if cache is None else y[0])
         h2 = norms.rms_apply(lp["ln2"], x, cfg.norm_eps)
-        return x + rwkv6.channel_mix(lp["rwkv"], h2, cfg), None
+        y2 = rwkv6.channel_mix(lp["rwkv"], h2, cfg, cache=r_cache)
+        return x + (y2 if cache is None else y2[0]), None
+    x = x + y
     h2 = norms.rms_apply(lp["ln2"], x, cfg.norm_eps)
     if ffn_kind == FFNKind.MOE:
         y2, lb, st = moe.apply(lp["moe"], h2, cfg, impl=ctx.moe_impl,
@@ -109,10 +134,31 @@ def init(cfg: ModelConfig, seed: int = 0, device="cuda", gen=None):
     return trainable(params)
 
 
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               kv_dtype=torch.bfloat16, device="cuda"):
+    """Per-layer decode caches (the list ``forward`` takes as ``caches``):
+    KV rings for attention layers (in ``kv_dtype``), conv window and fp32
+    state for Mamba layers, token shifts and fp32 WKV state for RWKV6."""
+    dev = resolve_device(device)
+    caches = []
+    for kind in cfg.layer_kinds:
+        if kind == LayerKind.ATTENTION:
+            caches.append({"attn": attention.init_cache(cfg, batch, max_len,
+                                                        kv_dtype, dev)})
+        elif kind == LayerKind.MAMBA:
+            caches.append({"mamba": mamba.init_cache(cfg, batch, device=dev)})
+        else:
+            caches.append({"rwkv": rwkv6.init_cache(cfg, batch, device=dev)})
+    return caches
+
+
 def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
-            positions=None, segment_ids=None, ctx: FwdCtx | None = None):
-    """Returns (logits_or_hidden, None, aux dict) — the reference's triple,
-    with no cache."""
+            positions=None, segment_ids=None, caches=None,
+            ctx: FwdCtx | None = None):
+    """Returns (logits_or_hidden, caches, aux dict), the reference's triple.
+    With ``caches`` (decode: x is (B, 1), positions from ``ctx.decode_pos``)
+    each layer's cache is written in place and the list is returned; else
+    the second item is None."""
     ctx = ctx or FwdCtx()
     compute_dtype = torch_dtype(cfg.dtype)
     if embeds is not None:
@@ -123,19 +169,21 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
         x = embed.encode(params["embed"], tokens, compute_dtype)
 
     B, S = x.shape[0], x.shape[1]
-    if positions is None:
+    if positions is None and ctx.mode != "decode":
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
 
     remat = (ctx.mode == "train" and cfg.remat and ctx.remat
              and torch.is_grad_enabled())
     lb = drop = imb = torch.zeros((), device=x.device)
-    for lp, kind, fk in zip(params["layers"], cfg.layer_kinds, cfg.ffn_kinds):
+    for i, (lp, kind, fk) in enumerate(zip(params["layers"], cfg.layer_kinds,
+                                           cfg.ffn_kinds)):
+        cache = caches[i] if caches is not None else None
         if remat:
             x, mo = checkpoint(_layer_apply, lp, x, cfg, kind, fk, ctx,
-                               positions, segment_ids, use_reentrant=False)
+                               positions, segment_ids, cache, use_reentrant=False)
         else:
             x, mo = _layer_apply(lp, x, cfg, kind, fk, ctx, positions,
-                                 segment_ids)
+                                 segment_ids, cache)
         if mo is not None:
             # mean drop across MoE layers; worst-layer imbalance (the
             # straggler expert matmul)
@@ -154,12 +202,31 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
         "moe_drop_rate": drop / total_moe if total_moe else nan,
         "moe_imbalance": imb if total_moe else nan,
     }
-    if not (cfg.has_lm_head and cfg.vocab_size > 0):
-        return x, None, aux
+    if ctx.return_hidden or not (cfg.has_lm_head and cfg.vocab_size > 0):
+        return x, caches, aux
     if cfg.tie_embeddings:
         logits = embed.decode(params["embed"], x)
     else:
         logits = embed.unembed(params["unembed"], x)
     if cfg.logit_softcap:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
-    return logits, None, aux
+    return logits, caches, aux
+
+
+@torch.no_grad()
+def decode_step(params, cfg: ModelConfig, token, caches, pos,
+                ctx: FwdCtx | None = None):
+    """One decode step. token: (B,) (or (B, 1)) int; pos: a scalar, or a
+    (B,) tensor of per-row positions (continuous batching, see
+    ``repro_torch.serve``).  Returns (logits (B, vocab), caches, aux), the
+    caches written in place."""
+    dev = params["final_norm"]["scale"].device
+    token = torch.as_tensor(token, device=dev)
+    if token.ndim == 1:
+        token = token[:, None]
+    pos = attention.check_decode_pos(pos, token.shape[0], dev)
+    ctx = dataclasses.replace(ctx or FwdCtx(remat=False), mode="decode",
+                              decode_pos=pos)
+    logits, caches, aux = forward(params, cfg, tokens=token, caches=caches,
+                                  ctx=ctx)
+    return logits[:, 0], caches, aux

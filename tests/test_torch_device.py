@@ -14,7 +14,8 @@ import torch
 from repro_torch import quickstart
 from repro_torch.common.types import resolve_device
 from repro_torch.configs import internvl2_2b, jamba_v0_1_52b, rwkv6_7b
-from repro_torch.convert import params_from_jax
+from repro_torch import serve
+from repro_torch.convert import caches_from_jax, params_from_jax
 from repro_torch.kernels import packed_flash_attention as pfa
 from repro_torch.models import mllm, model
 from repro_torch.train import step
@@ -30,11 +31,25 @@ def _no_card():
 @pytest.mark.parametrize("entry", ["mllm.init", "model.init", "as_tensors",
                                    "resolve_device", "model.init[rwkv6-7b]",
                                    "model.init[jamba]", "params_from_jax",
-                                   "quickstart"])
+                                   "quickstart", "model.init_cache",
+                                   "caches_from_jax", "serve_device_pools",
+                                   "RealBackend", "serving[real]",
+                                   "greedy_generate"])
 def test_default_device_without_card_raises(entry):
     _no_card()
     tiny = internvl2_2b.CFG
     jamba = dataclasses.replace(jamba_v0_1_52b.CFG, ffn_pattern=("dense",))
+    llm = internvl2_2b.LLM
+    params = {"final_norm": {"scale": torch.ones(1)}}       # on the CPU
+
+    def serving_real():
+        from repro_torch.core.engine import DFLOPEngine
+        from repro_torch.core.optimizer.space import ClusterSpec
+        from repro_torch.data.synthetic import MixedDataset
+        eng = DFLOPEngine(llm_cfg=llm, cluster=ClusterSpec(8, 8, 80e9))
+        eng.profile(MixedDataset("mixed", seed=0), n_samples=16)
+        return eng.serving(backend="real", model_params=params, warmup=False)
+
     call = {
         "mllm.init": lambda: mllm.init(tiny),
         "model.init": lambda: model.init(internvl2_2b.ENCODER),
@@ -44,6 +59,14 @@ def test_default_device_without_card_raises(entry):
         "model.init[jamba]": lambda: model.init(jamba),
         "params_from_jax": lambda: params_from_jax({"blocks": {}}, rwkv6_7b.CFG),
         "quickstart": lambda: quickstart.main([]),
+        "model.init_cache": lambda: model.init_cache(llm, 1, 8),
+        "caches_from_jax": lambda: caches_from_jax({}, llm),
+        "serve_device_pools": lambda: serve.real.serve_device_pools(1, 1),
+        "RealBackend": lambda: serve.RealBackend(llm, params, None, serve.ServeConfig(),
+                                                 warmup=False),
+        "serving[real]": serving_real,
+        "greedy_generate": lambda: serve.greedy_generate(
+            llm, model.init(llm), [[1, 2]], 1, 4),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         call()

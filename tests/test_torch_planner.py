@@ -398,16 +398,18 @@ def test_engine_profile_plan_schedule_matches_reference():
 
 
 def test_engine_closed_loops_stay_unported():
-    """``serving()`` is not ported.  ``runtime()`` is (held against the
-    reference in ``tests/test_torch_runtime.py``) and, as the reference's
-    does, plans first, which needs ``profile()``."""
+    """Both closed loops are ported: ``runtime()`` (held against the
+    reference in ``tests/test_torch_runtime.py``) and ``serving()`` (in
+    ``tests/test_torch_serve_engine.py``).  As the reference's do, each
+    needs ``profile()`` first: on an unprofiled engine both raise the
+    reference's own ``AssertionError``, in both packages."""
     eng = DFLOPEngine(llm_cfg=LLM, cluster=space.ClusterSpec(**CLUSTER))
     jeng = JEngine(llm_cfg=J_LLM, cluster=jspace.ClusterSpec(**CLUSTER))
     for e in (eng, jeng):
         with pytest.raises(AssertionError, match=r"call profile\(\) first"):
             e.runtime(8)
-    with pytest.raises(NotImplementedError, match="serve/"):
-        eng.serving()
+        with pytest.raises(AssertionError, match=r"call profile\(\) first"):
+            e.serving()
 
 
 def test_engine_prices_with_h100_by_default():
