@@ -111,7 +111,20 @@ Phases, each reported on its own lines:
                 completes; sampled requests' tokens equal their solo greedy runs);
                 K1, K4 and K6 at the serve shapes against their plain versions, timed
                 beside their bounds (and SDPA for K1);
- 14. summary  — one JSON line of the kernels, the card line, then the result.
+ 14. dist     — the distributed core (``launch``, ``sharding``, ``core.communicator``,
+                ``core.pipeline.executor``, ``phase_dist``) under NCCL at a world of 1
+                (the card is one rank): InternLM2-1.8B's 24 layers at full width,
+                stacked and run through ``pipeline_forward`` (one stage, 4
+                microbatches of the quickstart's packed 8192-token rows), forward and
+                backward against the sequential loop over the same layers (output,
+                loss and gradients within PATH_TOL; whether bitwise equal), K1-K3
+                launches by route; InternVL2-2B's step through
+                ``make_train_step(communicator=make_communicator(...))`` held to the
+                same loss and gradients without the hook; ``explicit_gather_scatter``
+                on the card; the vocab-parallel CE's ``None`` at model size 1;
+                InternVL2-2B's parameter and optimizer-state specs on the 1x1 mesh
+                and a stand-in 16x16;
+ 15. summary  — one JSON line of the kernels, the card line, then the result.
 
 Counts are set to 0 just before a training path and read just after it.
 Any failed check raises and the script exits non-zero.
@@ -700,6 +713,260 @@ def phase_serve(dev, timing, launches, max_err):
     torch.cuda.empty_cache()
 
 
+def phase_dist(dev, timing, launches, max_err, q_batch, vl_batch, check_routes):
+    """Phase 14: the distributed core under NCCL at a world of 1.
+
+    (a) InternLM2-1.8B (the quickstart's LLM) at full width and depth: its
+    24 layers stacked (``stack_layers``, ``stack_stage_params``) and run
+    through ``pipeline_forward`` over ``build_stage_fn(model.layer_fn)``
+    (checkpointed layers, as ``model.forward`` trains) on a ("stage",) mesh
+    of one, on the 4 microbatches of the quickstart's first batch (embedded
+    tokens, (1, 8192) packed rows with their positions and segment ids);
+    forward and backward against the sequential loop over the same layers:
+    output, loss, gradient norm and gradients (stacked layers and input)
+    within PATH_TOL, and whether they are bitwise equal; K1-K3 launches of
+    the pipeline run by route (all on the tensor cores).  (b) InternVL2-2B
+    at full size on phase 5's first batch: the gradients of both
+    microbatches through ``make_loss_fn(communicator=...)`` (encoder batch
+    over ("data", "model"), LLM's over ("data",) on a 1x1 host mesh) against
+    the same without the hook, then one ``make_train_step(communicator=...)``
+    step.  (c) ``explicit_gather_scatter`` on the card, the vocab-parallel
+    CE at model size 1 (None, as in the reference), and InternVL2-2B's
+    parameter and optimizer-state specs on the 1x1 mesh and a stand-in
+    16x16.  The process group is destroyed at the end."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.common.pytree import global_norm, tree_leaves, tree_map, tree_paths
+    from repro_torch.configs import internvl2_2b
+    from repro_torch.core.communicator import explicit_gather_scatter, make_communicator
+    from repro_torch.core.pipeline.executor import (build_stage_fn, pipeline_forward,
+                                                    stack_layers, stack_stage_params)
+    from repro_torch.kernels import packed_flash_attention as pfa
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh, mesh_shape
+    from repro_torch.models import mllm, model
+    from repro_torch.models.layers import embed
+    from repro_torch.models.model import FwdCtx
+    from repro_torch.sharding import (AxisAssignment, ModuleAssignment, opt_state_specs,
+                                      param_specs)
+    from repro_torch.sharding.vocab_ce import make_vocab_parallel_ce
+    from repro_torch.train import optim, step
+
+    t_phase = time.perf_counter()
+    torch.cuda.set_device(torch.cuda.current_device() if dev.index is None else dev.index)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            host = make_host_mesh((1, 1))
+            stage = make_mesh((1,), ("stage",))
+            log(f"[dist] NCCL world {dist.get_world_size()} (backend "
+                f"{dist.get_backend()}); host mesh {mesh_shape(host)}, stage mesh "
+                f"{mesh_shape(stage)}; {time.perf_counter() - t_phase:.2f} s")
+
+            # (a) InternLM2-1.8B's 24 layers through the pipeline executor
+            cfg = internvl2_2b.LLM
+            params = model.init(cfg, seed=0, device=dev)
+            flat = stack_layers([tree_map(lambda a: a.detach(), lp) for lp in params["layers"]])
+            stacked = tree_map(lambda a: a.requires_grad_(True), stack_stage_params(flat, 1))
+            del flat
+            b = {k: torch.as_tensor(np.asarray(v), device=dev) for k, v in q_batch.items()}
+            with torch.no_grad():
+                mbs = embed.encode(params["embed"], b["tokens"], torch.bfloat16)
+            mbs.requires_grad_(True)
+            pos, seg = b["positions"], b["segment_ids"]
+            del params
+            torch.cuda.empty_cache()
+            fn = model.layer_fn(cfg, FwdCtx())
+            n = cfg.n_layers
+            m = mbs.shape[0]
+            gen = torch.Generator(device=dev).manual_seed(14)
+            cot = torch.randn(mbs.shape, generator=gen, device=dev) / mbs[0].numel() ** 0.5
+            leaves = tree_leaves(stacked)
+            log(f"[dist] pipeline: {cfg.name}, {n} layers of d{cfg.d_model} (KH "
+                f"{cfg.n_kv_heads}, G {cfg.n_heads // cfg.n_kv_heads}, D {cfg.head_dim}), "
+                f"{sum(a.numel() for a in leaves) / 1e9:.3f} B stacked params (fp32, "
+                f"compute bf16); m {m} microbatches of {tuple(mbs.shape[1:3])} tokens, "
+                f"segments per microbatch {[len(torch.unique(s)) for s in seg]}")
+
+            def run(tag, forward):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                pfa.reset_launches()
+                t0 = time.perf_counter()
+                out = forward()
+                loss = (out.float() * cot).sum()
+                loss.backward()
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                res = {"out": out.detach(), "loss": loss.item(), "s": secs,
+                       "peak": torch.cuda.max_memory_allocated() / 2**30,
+                       "launches": dict(pfa.LAUNCHES),
+                       "grads": [a.grad for a in leaves] + [mbs.grad]}
+                for a in leaves + [mbs]:
+                    a.grad = None
+                log(f"[dist] {tag}: forward + backward {secs:.3f} s, loss {res['loss']:.6f}, "
+                    f"peak {res['peak']:.2f} GiB, K1-K3 launches (kernel, route, head_dim, "
+                    f"causal) {res['launches']}")
+                return res
+
+            pipe = pipeline_forward(stage, build_stage_fn(fn, n))
+            # in turns: pipeline (the first call, set-up included), sequential,
+            # pipeline; the second pipeline run is compared and counted
+            first = run("pipeline_forward (1 stage), first call", lambda: pipe(stacked, mbs,
+                                                                               pos, seg))
+            check_routes("dist pipeline")
+
+            def sequential():
+                outs = []
+                for i in range(m):
+                    h = mbs[i]
+                    for layer in range(n):
+                        h = fn(tree_map(lambda a: a[0, layer], stacked), h, pos[i], seg[i])
+                    outs.append(h)
+                return torch.stack(outs)
+
+            want = run("sequential loop", sequential)
+            check_routes("dist sequential")
+            got = run("pipeline_forward (1 stage)", lambda: pipe(stacked, mbs, pos, seg))
+            check_routes("dist pipeline")
+            repeat = torch.equal(first["out"], got["out"]) and all(
+                torch.equal(a, b) for a, b in zip(first["grads"], got["grads"]))
+            del first
+            n_k = {kn: sum(c for key, c in got["launches"].items() if key[0] == COUNTER[kn]
+                           and key[1] == pfa.TENSOR_CORE) for kn in COUNTER}
+            if min(n_k.values()) == 0:
+                raise SystemExit(f"dist: a kernel was not launched on the pipeline path: {n_k}")
+            rels = {"loss": abs(got["loss"] - want["loss"]) / max(abs(want["loss"]), 1e-12),
+                    "out": ((got["out"].float() - want["out"].float()).norm()
+                            / want["out"].float().norm()).item()}
+            gn_got, gn_want = global_norm(got["grads"]).item(), global_norm(want["grads"]).item()
+            rels["grad_norm"] = abs(gn_got - gn_want) / gn_want
+            rels["grads"] = global_norm([a - b for a, b in zip(got["grads"], want["grads"])]
+                                        ).item() / gn_want
+            rels["input grad"] = ((got["grads"][-1] - want["grads"][-1]).float().norm()
+                                  / want["grads"][-1].float().norm()).item()
+            bitwise = {"out": torch.equal(got["out"], want["out"]),
+                       "grads": all(torch.equal(a, b) for a, b in
+                                    zip(got["grads"], want["grads"]))}
+            tol = {"loss": PATH_TOL["loss"], "out": PATH_TOL["grads"],
+                   "grad_norm": PATH_TOL["grad_norm"], "grads": PATH_TOL["grads"],
+                   "input grad": PATH_TOL["grads"]}
+            log(f"[dist] pipeline vs sequential: " + ", ".join(
+                f"{k} relative difference {v:.3e} (tol {tol[k]:.0e})" for k, v in rels.items())
+                + f"; bitwise equal: output {bitwise['out']}, every gradient "
+                f"{bitwise['grads']}; the two pipeline runs bitwise equal {repeat}; "
+                f"pipeline {got['s']:.3f} s vs sequential "
+                f"{want['s']:.3f} s; K1/K2/K3 pipeline {n_k['K1']}/{n_k['K2']}/{n_k['K3']}")
+            if not all(math.isfinite(v) and v <= tol[k] for k, v in rels.items()):
+                raise SystemExit("dist: the pipeline disagrees with the sequential loop")
+            if not repeat:
+                raise SystemExit("dist: two pipeline runs are not bitwise equal")
+            for kn in COUNTER:
+                launches[(kn, "dist")] = n_k[kn]
+                timing[(kn, "dist")] = timing[(kn, "quickstart")]
+                max_err[(kn, "dist")] = max_err[(kn, "quickstart")]
+            del got, want, stacked, leaves, mbs, cot, pipe
+            torch.cuda.empty_cache()
+
+            # (b) InternVL2-2B through the Inter-model Communicator
+            vcfg = internvl2_2b.CFG
+            enc = AxisAssignment(batch=("data", "model"), tensor=())
+            llm = AxisAssignment(batch=("data",), tensor=("model",))
+            comm = make_communicator(host, enc, llm)
+            vp = mllm.init(vcfg, seed=0, device=dev)
+            named = tree_paths(vp)
+            n_mb = next(iter(vl_batch.values())).shape[0]
+
+            def grads_of(loss_fn):
+                for _, p in named:
+                    p.grad = None
+                t0 = time.perf_counter()
+                losses = []
+                for i in range(n_mb):
+                    loss = loss_fn(vp, {k: v[i] for k, v in vl_batch.items()})
+                    loss.backward()
+                    losses.append(loss.item())
+                torch.cuda.synchronize()
+                return losses, [p.grad for _, p in named], time.perf_counter() - t0
+
+            # a first pass without the hook takes the set-up; then without, with
+            grads_of(step.make_loss_fn(vcfg, FwdCtx()))
+            plain_l, plain_g, plain_s = grads_of(step.make_loss_fn(vcfg, FwdCtx()))
+            pfa.reset_launches()
+            hook_l, hook_g, hook_s = grads_of(step.make_loss_fn(vcfg, FwdCtx(),
+                                                                communicator=comm))
+            hook_launches = dict(pfa.LAUNCHES)
+            check_routes("dist communicator")
+            gn = global_norm(plain_g).item()
+            vrel = {"loss": max(abs(a - b) / abs(b) for a, b in zip(hook_l, plain_l)),
+                    "grad_norm": abs(global_norm(hook_g).item() - gn) / gn,
+                    "grads": global_norm([a - b for a, b in zip(hook_g, plain_g)]).item() / gn}
+            same = hook_l == plain_l and all(torch.equal(a, b) for a, b in zip(hook_g, plain_g))
+            log(f"[dist] InternVL2-2B, {n_mb} microbatches, communicator {enc.batch} -> "
+                f"{llm.batch} on {mesh_shape(host)}: losses {hook_l} (without the hook "
+                f"{plain_l}); " + ", ".join(f"{k} relative difference {v:.3e} (tol "
+                                            f"{PATH_TOL[k]:.0e})" for k, v in vrel.items())
+                + f"; bitwise equal {same}; {hook_s:.3f} s with the hook, {plain_s:.3f} s "
+                f"without; K1-K3 launches {hook_launches}")
+            if not all(math.isfinite(v) and v <= PATH_TOL[k] for k, v in vrel.items()):
+                raise SystemExit("dist: the communicator hook changes InternVL2-2B's step")
+            del plain_g, hook_g
+            for _, p in named:
+                p.grad = None
+            torch.cuda.empty_cache()
+            opt = optim.adamw_init(vp)
+            train_step = step.make_train_step(vcfg, optim.AdamWConfig(), ctx=FwdCtx(),
+                                              communicator=comm)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            vp, opt, met = train_step(vp, opt, vl_batch, 3e-4)
+            step_loss = met["loss"].item()
+            step_s = time.perf_counter() - t0
+            want_loss = sum(hook_l) / n_mb
+            log(f"[dist] InternVL2-2B make_train_step(communicator=...): loss {step_loss:.6f} "
+                f"(the hook's microbatch mean {want_loss:.6f}), {step_s:.3f} s, peak "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            if not abs(step_loss - want_loss) <= PATH_TOL["loss"] * abs(want_loss):
+                raise SystemExit("dist: the step's loss is not its microbatches' mean")
+
+            # (c) gather/scatter on the card, the vocab-parallel CE, the specs
+            x = torch.randn(4, 8, 16, generator=gen, device=dev)
+            y = explicit_gather_scatter(host, "data")(x)
+            ce_none = {tied: make_vocab_parallel_ce(host, ("data",), ("model",),
+                                                    vcfg.llm.vocab_size, tied) is None
+                       for tied in (False, True)}
+            log(f"[dist] explicit_gather_scatter on the card (NCCL all-gather) returns its "
+                f"input: {torch.equal(x, y)}; make_vocab_parallel_ce(...) is None at model "
+                f"size 1 (untied, tied): {ce_none[False]}, {ce_none[True]}")
+            if not (torch.equal(x, y) and all(ce_none.values())):
+                raise SystemExit("dist: gather/scatter or the vocab-parallel CE misbehaves")
+
+            class StandIn:
+                shape = {"data": 16, "model": 16}
+
+            assign = ModuleAssignment(
+                llm=AxisAssignment(batch=("data",), tensor=("model",), zero=("data",)),
+                encoder=AxisAssignment(batch=("data", "model"), tensor=(), zero=("data",)))
+            for name, mesh in (("1x1", host), ("16x16 stand-in", StandIn())):
+                ps = param_specs(vp, assign, mesh)
+                os_ = opt_state_specs(vp, ps, assign, mesh)
+                count = {k: sum(any(e is not None for e in sp) for _, sp in tree_paths(t))
+                         for k, t in (("params", ps), ("opt", os_))}
+                total = len(tree_paths(ps))
+                log(f"[dist] InternVL2-2B specs on {name}: params {count['params']} sharded, "
+                    f"{total - count['params']} replicated; optimizer state {count['opt']} "
+                    f"sharded, {total - count['opt']} replicated (of {total} leaves)")
+            del vp, opt, train_step
+            torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    log(f"[dist] phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -858,7 +1125,8 @@ def main() -> int:
         return quickstart.make_loader(qsz, q_eng, qds), q_res, q_prof_s, q_plan_s
 
     q_loader = quickstart_loader()[0]
-    q_first = next(iter(q_loader))["segment_ids"][:, 0]                   # (N_mb, S)
+    q_batch0 = next(iter(q_loader))           # (N_mb, 1, S) leaves; phase 14's pipeline
+    q_first = q_batch0["segment_ids"][:, 0]                               # (N_mb, S)
     q_groups = q_loader.last_schedule.groups
     q_seg = q_first[int(np.argmax([len(np.unique(r)) for r in q_first]))]
     del q_loader
@@ -2076,7 +2344,12 @@ def main() -> int:
     # 13. serve ------------------------------------------------------------ #
     phase_serve(dev, timing, launches, max_err)
 
-    # 14. summary ---------------------------------------------------------- #
+    # 14. dist ------------------------------------------------------------- #
+    phase_dist(dev, timing, launches, max_err, q_batch0,
+               mllm_batch(MixedDataset("mixed", seed=0, tokens_per_media_item=1024),
+                          internvl2_2b.CFG, MAX_MEDIA, MAX_TEXT, 0), check_routes)
+
+    # 15. summary ---------------------------------------------------------- #
     kernels = []
     for (kn, shape), r in timing.items():
         kernels.append({

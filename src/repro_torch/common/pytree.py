@@ -48,3 +48,16 @@ def global_norm(tree: Any) -> torch.Tensor:
 def trainable(tree: Any) -> Any:
     """The same tensors as leaves that require grad."""
     return tree_map(lambda x: x.detach().requires_grad_(True), tree)
+
+
+def tree_map_with_path_str(fn: Callable[[str, Any], Any], tree: Any,
+                           prefix: str = "") -> Any:
+    """Map a function of (path_string, leaf) over a tree; paths as
+    ``tree_paths`` writes them."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path_str(fn, v, f"{prefix}/{k}" if prefix else str(k))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_path_str(fn, t, f"{prefix}/{i}" if prefix else str(i))
+                          for i, t in enumerate(tree))
+    return fn(prefix, tree)

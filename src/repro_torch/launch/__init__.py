@@ -1,0 +1,3 @@
+"""Meshes and device placement (the port's ``repro.launch``): ``mesh`` builds
+``torch.distributed`` device meshes on an initialised process group and
+assigns the serving engine's worker pools to cards."""

@@ -50,8 +50,12 @@ def apply_connector(params, h, mcfg: MLLMConfig):
 
 
 def encode_media(params, mcfg: MLLMConfig, media_embeds, media_mask=None,
-                 ctx: FwdCtx | None = None):
-    """Encoder + connector. Returns LLM-space media tokens (B, T_out, dl)."""
+                 ctx: FwdCtx | None = None, communicator=None):
+    """Encoder + connector. Returns LLM-space media tokens (B, T_out, dl).
+
+    ``communicator`` (``core.communicator.make_communicator``) moves the
+    encoder's output from the encoder's data-parallel layout to the LLM's
+    before the connector (paper Fig. 6)."""
     ctx = ctx or FwdCtx(mode="train")
     seg = None
     if media_mask is not None:
@@ -59,6 +63,10 @@ def encode_media(params, mcfg: MLLMConfig, media_embeds, media_mask=None,
         seg = media_mask.to(torch.int32)
     h, _, _ = model_lib.forward(params["encoder"], mcfg.encoder,
                                 embeds=media_embeds, segment_ids=seg, ctx=ctx)
+    if communicator is not None:
+        # Inter-model Communicator: reshard encoder output from the encoder's
+        # data-parallel layout to the LLM's (paper Fig. 6).
+        h = communicator(h)
     h = apply_connector(params["connector"], h, mcfg)
     if mcfg.tokens_per_item_out:
         t_in = h.shape[1]
@@ -71,11 +79,16 @@ def encode_media(params, mcfg: MLLMConfig, media_embeds, media_mask=None,
 
 
 def forward_train(params, mcfg: MLLMConfig, batch, ctx: FwdCtx | None = None,
-                  enc_ctx: FwdCtx | None = None):
-    """Full multimodal forward: returns (logits over text span, aux)."""
+                  communicator=None, enc_ctx: FwdCtx | None = None):
+    """Full multimodal forward: returns (logits over text span, aux); with
+    ``ctx.return_hidden``, the text span's hidden states.  With a
+    ``communicator``, ``media_embeds`` and ``media_mask`` are this rank's
+    rows under the encoder's layout and the text leaves its rows under the
+    LLM's."""
     ctx = ctx or FwdCtx(mode="train")
     media = encode_media(params, mcfg, batch["media_embeds"],
-                         batch.get("media_mask"), ctx=enc_ctx or ctx)
+                         batch.get("media_mask"), ctx=enc_ctx or ctx,
+                         communicator=communicator)
     llm_cfg = mcfg.llm
     compute_dtype = torch_dtype(llm_cfg.dtype)
     text_emb = embed_lib.encode(params["llm"]["embed"], batch["text_tokens"],

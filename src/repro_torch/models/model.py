@@ -113,6 +113,25 @@ def _layer_apply(lp, x, cfg: ModelConfig, kind: LayerKind, ffn_kind: FFNKind,
     return x + ffn.apply(lp["ffn"], h2, cfg), None
 
 
+def layer_fn(cfg: ModelConfig, ctx: FwdCtx | None = None):
+    """``f(layer_params, x, positions, segment_ids) -> x``: one layer as
+    ``forward`` runs it (checkpointed in training while gradients are on),
+    for a stack whose layers share one kind and FFN (the pipeline executor
+    stacks them, ``core.pipeline.executor.stack_layers``)."""
+    ctx = ctx or FwdCtx()
+    if len(set(zip(cfg.layer_kinds, cfg.ffn_kinds))) != 1:
+        raise ValueError(f"{cfg.name}: layers of several kinds do not stack")
+    kind, fk = cfg.layer_kinds[0], cfg.ffn_kinds[0]
+
+    def f(lp, x, positions, segment_ids):
+        if ctx.mode == "train" and cfg.remat and ctx.remat and torch.is_grad_enabled():
+            return checkpoint(_layer_apply, lp, x, cfg, kind, fk, ctx, positions,
+                              segment_ids, None, use_reentrant=False)[0]
+        return _layer_apply(lp, x, cfg, kind, fk, ctx, positions, segment_ids)[0]
+
+    return f
+
+
 def init(cfg: ModelConfig, seed: int = 0, device="cuda", gen=None):
     """Random parameters (a tree of leaf tensors that require grad)."""
     if gen is None:

@@ -37,8 +37,8 @@ import numpy as np
 import torch
 
 from repro_torch.common.pytree import tree_map
-from repro_torch.common.types import resolve_device
 from repro_torch.data.composer import _pow2
+from repro_torch.launch.mesh import serve_device_pools
 from repro_torch.models import model as model_lib
 from repro_torch.models.layers.attention import kv_cache_bytes
 from repro_torch.serve.backend import (DecodeOutcome, ExecutionBackend,
@@ -47,35 +47,6 @@ from repro_torch.serve.request import Request
 from repro_torch.serve.steps import (chunk_step, clear_cache_row,
                                      extract_cache_row, merge_cache_row,
                                      pow2_chunks)
-
-
-def serve_device_pools(n_prefill: int, n_decode: int, devices=None):
-    """Assign the serving engine's worker pools to devices (prefill/decode
-    disaggregation).  With enough devices the pools are disjoint and the KV
-    handoff is a device-to-device copy; fewer devices wrap round-robin, down
-    to one card that holds both pools.  ``devices`` defaults to every CUDA
-    card (raising without one)."""
-    if devices is None:
-        resolve_device("cuda")
-        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-    devs = [_concrete(d) for d in devices]
-    if n_prefill < 1 or n_decode < 1:
-        raise ValueError("both pools need at least one worker")
-    total = n_prefill + n_decode
-    if len(devs) >= total:
-        return devs[:n_prefill], devs[n_prefill:total]
-    pre = [devs[i % len(devs)] for i in range(n_prefill)]
-    dec = [devs[(n_prefill + i) % len(devs)] for i in range(n_decode)]
-    return pre, dec
-
-
-def _concrete(device) -> torch.device:
-    """``device`` with its index (``cuda`` → ``cuda:<current>``), so that one
-    card has one name."""
-    dev = resolve_device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
 
 
 def _decode_bucket(cfg, params, caches, tok, pos, n_pad: int):

@@ -1,0 +1,25 @@
+from repro_torch.sharding.partition import (
+    AxisAssignment,
+    ModuleAssignment,
+    PartitionSpec,
+    sanitize_spec,
+    param_specs,
+    opt_state_specs,
+    named,
+    to_placements,
+    activation_spec,
+    tokens_spec,
+)
+
+__all__ = [
+    "AxisAssignment",
+    "ModuleAssignment",
+    "PartitionSpec",
+    "sanitize_spec",
+    "param_specs",
+    "opt_state_specs",
+    "named",
+    "to_placements",
+    "activation_spec",
+    "tokens_spec",
+]

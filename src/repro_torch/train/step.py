@@ -6,6 +6,7 @@ axis); the step loops over them, accumulating fp32 gradients in the
 parameters' ``.grad`` (params are fp32), divides by N_mb and updates."""
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable
 
 import numpy as np
@@ -22,7 +23,15 @@ from repro_torch.train.optim import AdamWConfig, adamw_update
 LB_LOSS_WEIGHT = 0.01
 
 
+def _head_weight(cfg, params):
+    """(weight, tied) for the LM head of a decoder param tree."""
+    if cfg.tie_embeddings or "unembed" not in params:
+        return params["embed"]["w"], True
+    return params["unembed"]["w"], False
+
+
 def make_loss_fn(desc: MLLMConfig | ModelConfig, ctx: FwdCtx | None = None,
+                 communicator=None, vocab_ce: Callable | None = None,
                  enc_ctx: FwdCtx | None = None,
                  with_aux: bool = False) -> Callable:
     """loss_fn(params, mb).  An ``MLLMConfig`` takes the multimodal batch of
@@ -30,18 +39,32 @@ def make_loss_fn(desc: MLLMConfig | ModelConfig, ctx: FwdCtx | None = None,
     (``tokens``, ``labels`` and optional ``positions``, ``segment_ids``, as
     ``data.packing`` makes them); an encoder-only ``ModelConfig`` (one with
     ``input_embed_dim``) takes ``frame_embeds``, ``labels`` (-1 where
-    unmasked) and optional ``segment_ids``."""
+    unmasked) and optional ``segment_ids``.
+
+    ``communicator`` (MLLM): reshards the encoder's output to the LLM's
+    layout (``core.communicator``).  ``vocab_ce``: a vocab-parallel CE
+    ``ce(w, h, labels)`` (``sharding.vocab_ce``) — the forward then returns
+    hidden states and the head and CE run through it."""
     ctx = ctx or FwdCtx(mode="train")
+    if vocab_ce is not None:
+        ctx = dataclasses.replace(ctx, return_hidden=True)
 
     def finish(ce, aux):
         loss = ce + LB_LOSS_WEIGHT * aux["lb_loss"]
         return (loss, aux) if with_aux else loss
 
+    def head_ce(cfg, head_params, out, labels):
+        if vocab_ce is None:
+            return cross_entropy(out, labels)
+        w, _ = _head_weight(cfg, head_params)
+        return vocab_ce(w, out, labels)
+
     if isinstance(desc, MLLMConfig):
         def loss_fn(params, mb):
-            logits, aux = mllm_lib.forward_train(params, desc, mb, ctx=ctx,
-                                                 enc_ctx=enc_ctx)
-            return finish(cross_entropy(logits, mb["labels"]), aux)
+            out, aux = mllm_lib.forward_train(params, desc, mb, ctx=ctx,
+                                              communicator=communicator,
+                                              enc_ctx=enc_ctx)
+            return finish(head_ce(desc.llm, params["llm"], out, mb["labels"]), aux)
         return loss_fn
 
     if desc.input_embed_dim > 0:
@@ -50,25 +73,28 @@ def make_loss_fn(desc: MLLMConfig | ModelConfig, ctx: FwdCtx | None = None,
             out, _, aux = model_lib.forward(
                 params, desc, embeds=mb["frame_embeds"],
                 segment_ids=mb.get("segment_ids"), ctx=ctx)
-            return finish(cross_entropy(out, mb["labels"]), aux)
+            return finish(head_ce(desc, params, out, mb["labels"]), aux)
         return loss_fn
 
     def loss_fn(params, mb):
-        logits, _, aux = model_lib.forward(
+        out, _, aux = model_lib.forward(
             params, desc, tokens=mb["tokens"], positions=mb.get("positions"),
             segment_ids=mb.get("segment_ids"), ctx=ctx)
-        return finish(cross_entropy(logits, mb["labels"]), aux)
+        return finish(head_ce(desc, params, out, mb["labels"]), aux)
     return loss_fn
 
 
 def make_train_step(desc: MLLMConfig | ModelConfig, opt_cfg: AdamWConfig,
-                    ctx: FwdCtx | None = None,
+                    ctx: FwdCtx | None = None, communicator=None,
+                    vocab_ce: Callable | None = None,
                     enc_ctx: FwdCtx | None = None) -> Callable:
     """step(params, opt_state, batch, lr) -> (params, opt_state, metrics).
 
     ``batch`` leaves carry a leading (N_mb,) microbatch axis.  Params and
-    optimizer state are updated in place and returned."""
-    loss_fn = make_loss_fn(desc, ctx, enc_ctx=enc_ctx, with_aux=True)
+    optimizer state are updated in place and returned.  ``communicator``
+    and ``vocab_ce`` as in ``make_loss_fn``."""
+    loss_fn = make_loss_fn(desc, ctx, communicator, vocab_ce=vocab_ce,
+                           enc_ctx=enc_ctx, with_aux=True)
 
     def train_step(params, opt_state, batch, lr):
         leaves = tree_leaves(params)
