@@ -83,7 +83,10 @@ Phases, each reported on its own lines:
                 events; the checkpoint must restore bitwise), 12 steps with the lookahead
                 composer, 12 steps of random assignment; per step loss, seconds beside the
                 predicted cmax and step, whether a re-plan search was in flight; drift
-                events, re-plans, metrics, launches, peak; one more step of each under
+                events, re-plans, metrics, launches, peak; each adopted re-plan is a
+                physical swap of (params, opt) through ``launch.reshard.ParamSwapper``
+                (physical swaps, reshard_mean_s, the trace's reshard spans: one a swap,
+                and the state bitwise unchanged by each); one more step of each under
                 ``torch.profiler``;
  12. archs    — the registry's configurations (``configs.get_config``) through
                 ``make_train_step(ModelConfig)``, 3 AdamW steps each, K1-K3 launches
@@ -124,7 +127,16 @@ Phases, each reported on its own lines:
                 on the card; the vocab-parallel CE's ``None`` at model size 1;
                 InternVL2-2B's parameter and optimizer-state specs on the 1x1 mesh
                 and a stand-in 16x16;
- 15. summary  — one JSON line of the kernels, the card line, then the result.
+ 15. elastic  — the physical reshard (``launch.reshard``, ``phase_elastic``) under NCCL
+                at a world of 1: InternLM2-1.8B's 24 layers stacked (fp32) with two AdamW
+                moments, 18.1 GB of state, through ``ParamSwapper`` over PP 1 -> 4 -> 2 ->
+                8 -> 3 -> 6 -> 1 on ``clamped_plan_mesh``: each swap's seconds, GB/s and
+                peak above what was allocated before it, ``estimate_cost_s`` before and
+                after the first swap; after each, ``pipeline_forward`` over the placed
+                layers on the quickstart's first batch (K1 on the tensor cores), bitwise
+                equal to the output before the chain.  Kill and revive (N -> N-1 -> N)
+                need a rank a host and run on gloo ranks on the CPU only;
+ 16. summary  — one JSON line of the kernels, the card line, then the result.
 
 Counts are set to 0 just before a training path and read just after it.
 Any failed check raises and the script exits non-zero.
@@ -966,6 +978,155 @@ def phase_dist(dev, timing, launches, max_err, q_batch, vl_batch, check_routes):
             dist.destroy_process_group()
     log(f"[dist] phase {time.perf_counter() - t_phase:.1f} s")
 
+
+
+# Phase 15's chain of stage counts: InternLM2-1.8B's 24 layers divide by each
+ELASTIC_PP = (1, 4, 2, 8, 3, 6, 1)
+
+
+def phase_elastic(dev, timing, launches, max_err, q_batch, check_routes):
+    """Phase 15: elastic execution's physical reshard under NCCL at a world of 1.
+
+    (a) InternLM2-1.8B's 24 layers stacked in fp32 as in phase 14 (1.51 B
+    parameters, 6.04 GB) with two AdamW moments of the same shapes (seeded,
+    18.1 GB of state) through ``ParamSwapper(stage_stacked=True,
+    mesh_factory=clamped_plan_mesh)`` over PP 1 -> 4 -> 2 -> 8 -> 3 -> 6 -> 1:
+    each swap's seconds, GB/s (bytes moved over seconds) and peak allocated
+    above what was allocated before it, ``estimate_cost_s`` before and after
+    the first swap; every swap must move every byte and restack.  After each,
+    ``pipeline_forward`` on the placed layers over the one-stage plan mesh
+    (its block: all 24 layers), forward only, on the quickstart's first batch
+    (K1 on the tensor cores): bitwise equal to the output before the chain.
+    On one card a swap is a device-to-device copy leaf by leaf (the old leaf
+    released before the next), no link traffic.  (b) The N -> N-1 -> N
+    roster change (kill and revive) does not run here: it needs a rank a
+    host, and NCCL refuses two ranks on one card; it runs on gloo ranks on
+    the CPU (``tests/test_torch_elastic.py``).  The process group is destroyed
+    at the end."""
+    import functools
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.common.pytree import tree_leaves, tree_map
+    from repro_torch.configs import internvl2_2b
+    from repro_torch.core.optimizer.space import ModuleParallelism, ParallelismPlan
+    from repro_torch.core.pipeline.executor import (build_stage_fn, pipeline_forward,
+                                                    stack_layers, stack_stage_params)
+    from repro_torch.kernels import packed_flash_attention as pfa
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.reshard import ParamSwapper, clamped_plan_mesh
+    from repro_torch.models import model
+    from repro_torch.models.layers import embed
+    from repro_torch.models.model import FwdCtx
+
+    t_phase = time.perf_counter()
+    torch.cuda.set_device(torch.cuda.current_device() if dev.index is None else dev.index)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            cfg = internvl2_2b.LLM
+            params = model.init(cfg, seed=0, device=dev)
+            flat = stack_layers([tree_map(lambda a: a.detach(), lp) for lp in params["layers"]])
+            b = {k: torch.as_tensor(np.asarray(v), device=dev) for k, v in q_batch.items()}
+            with torch.no_grad():
+                mbs = embed.encode(params["embed"], b["tokens"], torch.bfloat16)
+            pos, seg = b["positions"], b["segment_ids"]
+            del params
+            layers = stack_stage_params(flat, 1)
+            del flat
+            gen = torch.Generator(device=dev).manual_seed(15)
+            moments = [tree_map(lambda a: torch.randn(a.shape, generator=gen, device=dev),
+                                layers) for _ in range(2)]
+            live = {"state": (layers, *moments)}
+            del layers, moments
+            torch.cuda.empty_cache()
+            state_bytes = sum(a.nbytes for a in tree_leaves(live["state"]))
+            n_params = sum(a.numel() for a in tree_leaves(live["state"][0]))
+            largest = max(a.nbytes for a in tree_leaves(live["state"]))
+            fn = model.layer_fn(cfg, FwdCtx())
+            n = cfg.n_layers
+
+            def forward():
+                """The placed layers on their plan mesh (plain stacks before
+                the first swap, on a ("stage",) mesh of one)."""
+                state = live["state"]
+                mesh = one_stage if isinstance(state, tuple) else state.mesh
+                pipe = pipeline_forward(mesh, build_stage_fn(fn, n))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with torch.no_grad():
+                    out = pipe(state[0], mbs, pos, seg)
+                torch.cuda.synchronize()
+                return out, time.perf_counter() - t0
+
+            one_stage = make_mesh((1,), ("stage",))
+            log(f"[elastic] NCCL world {dist.get_world_size()}; {cfg.name}'s {n} layers "
+                f"stacked ({n_params / 1e9:.3f} B params, fp32) + 2 AdamW moments: "
+                f"{state_bytes / 1e9:.3f} GB of state in {len(tree_leaves(live['state']))} "
+                f"leaves, the largest {largest / 1e9:.3f} GB; {mbs.shape[0]} microbatches of "
+                f"{tuple(mbs.shape[1:3])} tokens; {time.perf_counter() - t_phase:.1f} s")
+            swapper = ParamSwapper(lambda: live["state"], lambda s: live.update(state=s),
+                                   stage_stacked=True,
+                                   mesh_factory=functools.partial(clamped_plan_mesh,
+                                                                  device_type="cuda"))
+            plans = [ParallelismPlan(llm=ModuleParallelism(1, pp, 1), n_mb=mbs.shape[0])
+                     for pp in ELASTIC_PP]
+            pfa.reset_launches()
+            first, first_s = forward()
+            log(f"[elastic] pipeline_forward before the chain (PP 1, plain stacks): "
+                f"{first_s:.3f} s")
+            rows = []
+            for old, new in zip(plans, plans[1:]):
+                est = swapper.estimate_cost_s(old, new)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                before = torch.cuda.memory_allocated()
+                rep = swapper.swap(old, new)
+                peak = torch.cuda.max_memory_allocated() - before
+                after = torch.cuda.memory_allocated()
+                out, fwd_s = forward()
+                same = torch.equal(out, first)
+                del out
+                state = live["state"]
+                rows.append(dict(pp=(old.llm.pp, new.llm.pp), s=rep.elapsed_s,
+                                 gbps=rep.bytes_moved / rep.elapsed_s / 1e9, peak=peak,
+                                 est=est, same=same, fwd_s=fwd_s))
+                log(f"[elastic] swap PP {old.llm.pp} -> {new.llm.pp}: {rep.elapsed_s:.4f} s, "
+                    f"{rep.bytes_moved / rep.elapsed_s / 1e9:.1f} GB/s ({rep.bytes_moved} of "
+                    f"{rep.bytes_total} bytes moved, {rep.n_leaves} leaves, restacked "
+                    f"{rep.restacked}); peak {peak / 1e9:.3f} GB above the {before / 1e9:.3f} "
+                    f"GB allocated before it ({after / 1e9:.3f} GB after); estimate_cost_s "
+                    f"before it {est:.4f} s; layout {state.layout}, local leaf shapes "
+                    f"{[tuple(a.shape) for a in tree_leaves(state[0].tree)][:2]}...; "
+                    f"pipeline_forward {fwd_s:.3f} s, bitwise equal to the first: {same}")
+                if not (rep.bytes_moved == rep.bytes_total == state_bytes and rep.restacked):
+                    raise SystemExit(f"elastic: swap {rep} did not move and restack every byte")
+                if not same:
+                    raise SystemExit(f"elastic: the output after PP {new.llm.pp} differs")
+            n_k1 = sum(c for key, c in pfa.LAUNCHES.items() if key[0] == "fwd")
+            check_routes("elastic")
+            if n_k1 == 0:
+                raise SystemExit("elastic: K1 was not launched on the chain's forwards")
+            est_after = swapper.estimate_cost_s(plans[0], plans[1])
+            secs = [r["s"] for r in rows]
+            log(f"[elastic] {len(rows)} swaps of {state_bytes / 1e9:.3f} GB: seconds "
+                f"{[round(x, 5) for x in secs]}, GB/s {[round(r['gbps'], 1) for r in rows]}, "
+                f"peak above the state GB {[round(r['peak'] / 1e9, 3) for r in rows]}; "
+                f"estimate_cost_s before the first swap {rows[0]['est']:.4f} s (NVLink 4 "
+                f"default), after the chain {est_after:.4f} s (measured bandwidth); K1 "
+                f"launches {n_k1} over {len(rows) + 1} forwards: {dict(pfa.LAUNCHES)}")
+            launches[("K1", "elastic")] = n_k1
+            timing[("K1", "elastic")] = timing[("K1", "quickstart")]
+            max_err[("K1", "elastic")] = max_err[("K1", "quickstart")]
+            del first, live, state, swapper, mbs
+            torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    log(f"[elastic] phase {time.perf_counter() - t_phase:.1f} s")
 
 def main() -> int:
     import torch
@@ -2125,6 +2286,26 @@ def main() -> int:
     ckpt_path = os.path.join(HERE, "build", "runtime_ckpt")
     m100_launches = {(kn, shape): 0 for kn in COUNTER for shape in m100_shapes}
     m100_steps = 0
+    from repro_torch.launch.reshard import ParamSwapper, Placed
+
+    def state_bits(state):
+        """The (params, opt) tensors, fp32 read as int32 (bitwise)."""
+        tree = state.tree if isinstance(state, Placed) else state
+        return [a.detach().view(torch.int32) if a.dtype == torch.float32 else a.detach()
+                for a in tree_leaves(tree) if isinstance(a, torch.Tensor)]
+
+    class CheckedSwapper(ParamSwapper):
+        """The trainer's swapper, holding each swap's (params, opt) against a
+        copy taken before it, bitwise."""
+        same = []
+
+        def swap(self, old_plan, new_plan):
+            before = [a.clone() for a in state_bits(self._get())]
+            rep = super().swap(old_plan, new_plan)
+            after = state_bits(self._get())
+            CheckedSwapper.same.append(len(before) == len(after) and all(
+                torch.equal(a, b) for a, b in zip(before, after)))
+            return rep
     for tag, argv in (("replan", ["--steps", "24", "--shift-at", "6", "--replan",
                                   "--trace", trace_path, "--ckpt", ckpt_path]),
                       ("compose", ["--steps", "12", "--compose-window", "2"]),
@@ -2132,7 +2313,9 @@ def main() -> int:
         reset_counts()
         torch.cuda.synchronize()
         log(f"[runtime] {tag}: python -m repro_torch.train_mllm {' '.join(argv)}")
-        run = m100_loop.run(m100_loop.parse_args(argv + ["--device", "cuda"]))
+        CheckedSwapper.same = []
+        run = m100_loop.run(m100_loop.parse_args(argv + ["--device", "cuda"]),
+                            swapper_cls=CheckedSwapper)
         ctl, steps = run["ctl"], run["steps"]
         for st in steps:
             sc = st["schedule"]
@@ -2170,6 +2353,24 @@ def main() -> int:
         log(f"[runtime] {tag}: replan-search spans (host s): "
             f"{[round(x, 4) for x in spans]}; final plan {ctl.plan.as_tuple()}")
         log(f"[runtime] {tag}: metrics {json.dumps(ctl.metrics.snapshot())}")
+        # the physical half of each plan swap (launch/reshard.ParamSwapper)
+        snap = ctl.metrics.snapshot()
+        reshards = [(e["dur"] / 1e6, e["args"]["old"], e["args"]["new"])
+                    for e in ctl.trace.to_chrome()["traceEvents"] if e["name"] == "reshard"]
+        log(f"[runtime] {tag}: physical_swaps {snap['n_physical_swaps']}, reshard_mean_s "
+            f"{snap['reshard_mean_s']}, replans adopted {snap['n_replans']}; trace reshard "
+            f"spans (host s, old plan, new plan) {reshards}; reports "
+            + "; ".join(f"{r.old_plan} -> {r.new_plan}: {r.bytes_moved} of {r.bytes_total} "
+                        f"bytes moved in {r.elapsed_s:.5f} s" for r in run["swapper"].reports)
+            + f"; each swap left (params, opt) bitwise unchanged: {CheckedSwapper.same}; "
+            f"final layout {getattr(run['state'], 'layout', 'plain (no swap)')}")
+        if not (len(reshards) == snap["n_physical_swaps"] == snap["n_replans"]
+                == len(CheckedSwapper.same)):
+            raise SystemExit(f"runtime {tag}: {len(reshards)} reshard spans, "
+                             f"{snap['n_physical_swaps']} physical swaps, "
+                             f"{snap['n_replans']} adopted re-plans")
+        if not all(CheckedSwapper.same):
+            raise SystemExit(f"runtime {tag}: a swap changed (params, opt)")
         n = {(kn, shape): pfa.LAUNCHES[(COUNTER[kn], pfa.CUDA_CORE, path_shapes[shape]["D"],
                                         path_shapes[shape]["causal"])]
              for kn in COUNTER for shape in m100_shapes}
@@ -2349,7 +2550,10 @@ def main() -> int:
                mllm_batch(MixedDataset("mixed", seed=0, tokens_per_media_item=1024),
                           internvl2_2b.CFG, MAX_MEDIA, MAX_TEXT, 0), check_routes)
 
-    # 15. summary ---------------------------------------------------------- #
+    # 15. elastic ---------------------------------------------------------- #
+    phase_elastic(dev, timing, launches, max_err, q_batch0, check_routes)
+
+    # 16. summary ---------------------------------------------------------- #
     kernels = []
     for (kn, shape), r in timing.items():
         kernels.append({

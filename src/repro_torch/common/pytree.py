@@ -15,6 +15,22 @@ def tree_leaves(tree: Any) -> list:
     return [tree]
 
 
+def tree_unflatten(like: Any, leaves) -> Any:
+    """The tree of ``like``'s structure holding ``leaves`` in
+    ``tree_leaves`` order (dict keys sorted)."""
+    return _build(like, iter(leaves))
+
+
+def _build(t: Any, it) -> Any:
+    # a module-level recursion: a closure that calls itself is a reference
+    # cycle, which would keep ``leaves`` alive until a garbage collection
+    if isinstance(t, dict):
+        return {k: _build(t[k], it) for k in sorted(t)}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_build(x, it) for x in t)
+    return next(it)
+
+
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}

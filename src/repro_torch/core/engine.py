@@ -128,7 +128,7 @@ class DFLOPEngine:
         """Closed control loop: returns a `repro.runtime.RuntimeController`
         wrapping this engine + a fresh scheduler.  Plans first if needed.
 
-        ``param_swapper`` (see `repro.launch.reshard.ParamSwapper`) threads
+        ``param_swapper`` (see `repro_torch.launch.reshard.ParamSwapper`) threads
         the training loop's *live* params through the controller: a plan
         hot-swap then physically re-lays-out parameters on device, gated on
         amortized reshard cost over ``swap_horizon_batches``.
@@ -141,7 +141,7 @@ class DFLOPEngine:
         hot-swaps; feed it via ``ctl.compose(draw=...)`` or
         ``ScheduledLoader(composer=ctl.composer)``.
 
-        ``fleet`` (see `repro.launch.fleet.FleetManager`) makes the loop
+        ``fleet`` (see `repro_torch.launch.fleet.FleetManager`) makes the loop
         *elastic*: the controller drains membership events at batch
         boundaries (`poll_fleet`) and recovers checkpoint-free — re-plan
         for the surviving roster, migrate live params via

@@ -39,7 +39,7 @@ import torch.distributed as dist
 
 from repro_torch.common.collectives import _all_reduce
 from repro_torch.launch.mesh import axes_size
-from repro_torch.common.pytree import tree_leaves, tree_map
+from repro_torch.common.pytree import tree_leaves, tree_map, tree_unflatten
 
 
 def build_stage_fn(layer_apply: Callable, layers_per_stage: int) -> Callable:
@@ -72,28 +72,13 @@ def _ring(x, mesh, axis: str, shift: int):
     return out
 
 
-def _unflatten(like, leaves):
-    """The tree of ``like``'s structure holding ``leaves`` in
-    ``tree_leaves`` order (dict keys sorted)."""
-    it = iter(leaves)
-
-    def build(t):
-        if isinstance(t, dict):
-            return {k: build(t[k]) for k in sorted(t)}
-        if isinstance(t, (list, tuple)):
-            return type(t)(build(x) for x in t)
-        return next(it)
-
-    return build(like)
-
-
 class _Pipeline(torch.autograd.Function):
     @staticmethod
     def forward(ctx, run, mbs, *leaves):
         stage_fn, like, side, mesh, axis = run
         p, idx = axes_size(mesh, axis), mesh.get_local_rank(axis)
         m = mbs.shape[0]
-        params = _unflatten(like, leaves)
+        params = tree_unflatten(like, leaves)
         outputs = torch.zeros_like(mbs)
         state = torch.zeros_like(mbs[0])
         saved = {}
@@ -137,7 +122,7 @@ class _Pipeline(torch.autograd.Function):
             with torch.enable_grad():
                 x = ctx.saved[t].detach().requires_grad_(True)
                 lp = [a.detach().requires_grad_(w) for a, w in zip(leaves, want)]
-                y = stage_fn(_unflatten(like, lp), x, *(s[j] for s in side))
+                y = stage_fn(tree_unflatten(like, lp), x, *(s[j] for s in side))
                 wrt = [x] + [a for a, w in zip(lp, want) if w]
                 grads = torch.autograd.grad(y, wrt, g_y, allow_unused=True)
             g_x, rest = grads[0], iter(grads[1:])
@@ -160,14 +145,18 @@ def pipeline_forward(mesh, stage_fn: Callable, axis: str = "stage"):
     """Returns f(stacked_stage_params, microbatches, *side) -> outputs.
 
     stacked_stage_params: leaves (p, layers_per_stage, ...), every stage's;
-    this rank takes its own, ``[index on axis]``.  microbatches: (m, mb,
-    seq, d), the same on every rank of the axis.  side: tensors (m, ...)
-    given to ``stage_fn`` a microbatch at a time (positions, segment ids;
-    no gradient).  outputs: (m, mb, seq, d) on every rank.
+    this rank takes its own, ``[index on axis]``.  Or a placed state
+    (``repro_torch.launch.reshard.Placed``): leaves (pp, L/pp, ...) in p
+    blocks over the mesh's stage axis, this rank's block local (its pp/p
+    plan stages run as one stage of L/p layers).  microbatches: (m, mb, seq, d), the
+    same on every rank of the axis.  side: tensors (m, ...) given to
+    ``stage_fn`` a microbatch at a time (positions, segment ids; no
+    gradient).  outputs: (m, mb, seq, d) on every rank.
     """
     p = axes_size(mesh, axis)
 
     def f(stacked_stage_params, microbatches, *side):
+        from repro_torch.launch.reshard import Placed
         idx = mesh.get_local_rank(axis)
 
         def own(a):
@@ -175,11 +164,25 @@ def pipeline_forward(mesh, stage_fn: Callable, axis: str = "stage"):
                 raise ValueError(f"leaf of leading dim {a.shape[0]} on {p} stages")
             return a[idx]
 
-        local = tree_map(own, stacked_stage_params)
+        if isinstance(stacked_stage_params, Placed):
+            local = _placed_stage(stacked_stage_params, p, idx)
+        else:
+            local = tree_map(own, stacked_stage_params)
         run = (stage_fn, local, side, mesh, axis)
         return _Pipeline.apply(run, microbatches, *tree_leaves(local))
 
     return f
+
+
+def _placed_stage(placed, p: int, idx: int):
+    """Stage ``idx`` of ``p``'s layers of a placed state: this rank's block,
+    (pp/p, L/pp, ...) leaves flattened to (L/p, ...)."""
+    lay, me = placed.layout, dist.get_rank()
+    if not lay.holds(me) or lay.n_blocks != p or lay.block_of(me) != idx:
+        raise ValueError(f"this rank's part of the placed state is not stage {idx} "
+                         f"of {p} (layout {lay})")
+    return tree_map(lambda a: a.reshape(a.shape[0] * a.shape[1], *a.shape[2:]),
+                    placed.tree)
 
 
 def stack_layers(layers):

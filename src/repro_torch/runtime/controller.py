@@ -87,7 +87,7 @@ class RuntimeController:
                  composer=None,
                  fleet=None):
         """param_swapper: optional physical-reshard hook (duck-typed to
-        `repro.launch.reshard.ParamSwapper`: ``swap(old_plan, new_plan) ->
+        `repro_torch.launch.reshard.ParamSwapper`: ``swap(old_plan, new_plan) ->
         ReshardReport`` plus optional ``estimate_cost_s``/``compatible``).
         When set, `maybe_swap()` re-lays-out the live params at the batch
         boundary and only adopts a plan whose predicted per-batch makespan
@@ -99,7 +99,7 @@ class RuntimeController:
         this trace/metrics) and flushes its cached window durations on
         every plan hot-swap, so composition never targets a stale θ*.
 
-        fleet: optional `repro.launch.fleet.FleetManager`.  `poll_fleet()`
+        fleet: optional `repro_torch.launch.fleet.FleetManager`.  `poll_fleet()`
         (called from `schedule()` at every batch boundary; physically-
         backed pipelined loops call it alongside `maybe_swap()`) drains
         its membership events and runs checkpoint-free recovery: re-plan

@@ -82,7 +82,7 @@ class RuntimeMetrics:
         self.n_replans = 0
         self.n_drift_events = 0
         self.n_physical_swaps = 0
-        # -- fleet membership (repro.launch.fleet) ---------------------- #
+        # -- fleet membership (repro_torch.launch.fleet) ---------------- #
         self.n_host_joins = 0
         self.n_host_leaves = 0          # graceful leaves + failures
         self.n_host_failures = 0

@@ -116,7 +116,10 @@ def test_chip_smoke_fails_without_card():
     assert '"ok": true' not in out.stdout
 
 
-@pytest.mark.parametrize("module", ["repro_torch.kernels.blocking"])
+@pytest.mark.parametrize("module", ["repro_torch.kernels.blocking",
+                                    "repro_torch.data.host_shard",
+                                    "repro_torch.launch.fleet",
+                                    "repro_torch.launch.reshard"])
 def test_port_doctests(module):
     import doctest
     import importlib
