@@ -136,7 +136,29 @@ Phases, each reported on its own lines:
                 layers on the quickstart's first batch (K1 on the tensor cores), bitwise
                 equal to the output before the chain.  Kill and revive (N -> N-1 -> N)
                 need a rank a host and run on gloo ranks on the CPU only;
- 16. summary  — one JSON line of the kernels, the card line, then the result.
+ 16. shard    — the sharded layer paths (``phase_shard``, ``shard_rank``) on 16 gloo
+                ranks that share the card (NCCL refuses two ranks on one device; each
+                rank a process of its own on a ``FileStore``, its tensors on the card,
+                gloo staging each collective through host memory), a (1, 16) ("data",
+                "model") mesh: one MoE layer each of Jamba-v0.1 (16 experts: the EP
+                path, one a rank), Granite-MoE-3B-A800M and Mixtral-8x7B (40 and 8:
+                the TP-expert path) at full width in bf16, 4096 tokens, capacity factor
+                E / k, against the whole layer's capacity path and dense oracle on
+                rank 0 (y within TOL, loss and the gradients of x, the router and every
+                rank's expert slices within PATH_TOL; path, seconds and peak a rank;
+                two sharded runs bitwise equal, reported only); Jamba's Mamba scan at
+                full width (di 8192, 512 channels a rank), B 2 x S 4096 in fp32,
+                through ``ssm_scan_sharded`` against the unsharded naive scan (y and h
+                2e-5, the six gradients 2e-4); Mixtral-8x7B at full width, 2 layers,
+                under ``FwdCtx(shard_ctx, moe_impl="ep")`` on a (1, 4) mesh of ranks
+                0-3 (2 experts a rank) against rank 0's single-process step (loss and
+                gradients within PATH_TOL), K1-K3 launches a rank (all on the tensor
+                cores).  No collective here is timed across cards;
+ 17. drivers  — ``python -m repro_torch.plan_inspector`` (the default llava-ov-qwen7b on
+                256 H100s), ``serve_decode`` and ``serve_mllm`` on the card: exit 0
+                and the reference's lines (theta* and baselines; ``generated`` for each
+                tiny family; the three parts, the real backend ``completed n/n``);
+ 18. summary  — one JSON line of the kernels, the card line, then the result.
 
 Counts are set to 0 just before a training path and read just after it.
 Any failed check raises and the script exits non-zero.
@@ -1127,6 +1149,619 @@ def phase_elastic(dev, timing, launches, max_err, q_batch, check_routes):
         finally:
             dist.destroy_process_group()
     log(f"[elastic] phase {time.perf_counter() - t_phase:.1f} s")
+
+# Phase 16's sharded layers.  The chip machine has one card and NCCL refuses
+# two ranks on one device, so "world" gloo ranks share it (their tensors stay
+# on the card; gloo stages each collective through host memory) on a
+# ("data", "model") mesh of (1, 16), the reference's model axis: three MoE
+# layers at full width in bf16 on T tokens at capacity factor E / k (nothing
+# drops): Jamba-v0.1's 16 experts take the EP path (1 a rank), Granite's 40
+# and Mixtral's 8 the TP-expert path (d_ff 32 and 896 a rank); Jamba's Mamba
+# scan at full width (di 8192, 512 channels a rank; N 16), B 2 x S 4096 in
+# fp32; then Mixtral-8x7B at full width cut to 2 layers under
+# FwdCtx(shard_ctx, moe_impl="ep") on a (1, 4) mesh of ranks 0-3 (EP, 2
+# experts a rank) on one 8192-token row of phase 12's batch.  "overrides"
+# (arch -> ModelConfig fields) shrink the configs for a rehearsal on the CPU.
+SHARD_PLAN = {
+    "world": 16, "device": "cuda", "T": 4096,
+    "layers": [["jamba-v0.1-52b", "ep"], ["granite-moe-3b-a800m", "tp"],
+               ["mixtral-8x7b", "tp"]],
+    "scan": {"arch": "jamba-v0.1-52b", "B": 2, "S": 4096},
+    "model": {"arch": "mixtral-8x7b", "n_layers": MIXTRAL_LAYERS, "world": 4},
+    "overrides": {},
+}
+# The sharded Mamba scan against the unsharded naive scan (fp32), max|err|
+# over the oracle's largest element: the reference test's tolerances
+SHARD_SCAN_TOL = {"y": 2e-5, "h": 2e-5, "grads": 2e-4}
+
+
+def _sync(dev):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _reset_peak(dev):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _peak_gib(dev):
+    import torch
+    return torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else 0.0
+
+
+def _errs(a, b):
+    """(max|a - b|, max|b|, ||a - b|| / ||b||), as ``rel_errors`` gives them."""
+    d, b = a.float() - b.float(), b.float()
+    return d.abs().max().item(), b.abs().max().item(), (d.norm() / b.norm()).item()
+
+
+def _max_rel(a, b) -> float:
+    """max|a - b| / max|b| (0 where both are all zero)."""
+    d, m = (a.float() - b.float()).abs().max().item(), b.float().abs().max().item()
+    return d / m if m > 0 else (0.0 if d == 0 else math.inf)
+
+
+def shard_rank(rank: int, tmp: str) -> None:
+    """One rank of phase 16 (``python3 chip_smoke.py --shard-rank K DIR``):
+    reads ``DIR/plan.json``, joins the gloo group on ``DIR/store``, runs its
+    share of every check of the phase and writes ``DIR/rank{K}.json`` (its
+    paths, seconds, peaks and gradient norms; rank 0 also the comparisons
+    with the oracles, which it runs on the whole layers).  Raises on any
+    failure, so the rank exits non-zero."""
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.common.pytree import tree_leaves, tree_map, tree_paths
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels import packed_flash_attention as pfa
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model
+    from repro_torch.models.layers import mamba, moe
+    from repro_torch.models.model import FwdCtx
+    from repro_torch.sharding import AxisAssignment, ModuleAssignment, expert_shards
+    from repro_torch.train import step
+
+    with open(os.path.join(tmp, "plan.json")) as fh:
+        plan = json.load(fh)
+    world, dev = plan["world"], torch.device(plan["device"])
+    torch.set_num_threads(1)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+        dev = torch.device("cuda", 0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        build.load("packed_flash_attention")           # built by the parent
+
+    def cfg_of(arch, **kw):
+        return dc.replace(get_config(arch).desc, **plan["overrides"].get(arch, {}), **kw)
+
+    t_rank = time.perf_counter()
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(tmp, "store"), world),
+                            rank=rank, world_size=world)
+    rep = {"rank": rank, "layers": {}}
+    try:
+        mesh = make_mesh((1, world), ("data", "model"), device_type=dev.type)
+        ctx = (mesh, ("data",), ("model",))
+        assign = ModuleAssignment(llm=AxisAssignment(batch=("data",), tensor=("model",)))
+        # rank 0 with rank k: a group of two that moves rank k's slices to rank 0
+        pairs = {k: dist.new_group([0, k]) for k in range(1, world)}
+        rep["setup_s"] = time.perf_counter() - t_rank
+
+        def to_rank0(tensors, k):
+            """Rank k's ``tensors`` on rank 0 (a broadcast in {0, k})."""
+            out = []
+            for t in tensors:
+                buf = t.contiguous() if rank == k else torch.empty(t.shape, dtype=t.dtype,
+                                                                   device=dev)
+                dist.broadcast(buf, src=k, group=pairs[k])
+                out.append(buf)
+            return out
+
+        def release():
+            """Return this process's cached blocks to the card: the ranks
+            share it, and no process can use another's cache."""
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+
+        def card_used():
+            """GiB in use on the card by every process (0 on the CPU)."""
+            if dev.type != "cuda":
+                return 0.0
+            free, total = torch.cuda.mem_get_info(dev)
+            return (total - free) / 2**30
+
+        def in_turns(fn, ranks):
+            """``fn()`` on each of ``ranks`` in turn (whole-layer builds),
+            every rank passing the same barriers."""
+            for r in range(world):
+                if rank == r and r in ranks:
+                    fn()
+                    release()
+                dist.barrier()
+
+        class Gap:
+            """Σ||got - want||² and Σ||want||² by leaf name."""
+
+            def __init__(self):
+                self.err, self.ref = {}, {}
+
+            def add(self, name, got, want):
+                self.err[name] = self.err.get(name, 0.0) + (got.float() - want.float()
+                                                            ).norm().item() ** 2
+                self.ref[name] = self.ref.get(name, 0.0) + want.float().norm().item() ** 2
+
+            def total(self):
+                return math.sqrt(sum(self.err.values()) / sum(self.ref.values()))
+
+            def by_leaf(self):
+                return {n: math.sqrt(self.err[n] / max(self.ref[n], 1e-60)) for n in self.err}
+
+        # (a) three MoE layers at full width: the sharded path on every rank,
+        # the capacity path and the dense oracle on the whole layer (rank 0)
+        for arch, want_path in plan["layers"]:
+            cfg = cfg_of(arch)
+            E, k, T = cfg.n_experts, cfg.top_k, plan["T"]
+            cf = E / k
+            held = {}
+
+            def build_layer():
+                full = moe.init(torch.Generator(device=dev).manual_seed(16), cfg,
+                                dtype=torch.bfloat16)
+                held["mine"] = {n: v.requires_grad_(True) for n, v in expert_shards(
+                    {"l": {"moe": full}}, assign, mesh)["l"]["moe"].items()}
+                if rank == 0:
+                    held["full"] = {n: v.requires_grad_(True) for n, v in full.items()}
+
+            in_turns(build_layer, range(world))
+            mine = held["mine"]
+            names = sorted(mine)
+            x = torch.randn(1, T, cfg.d_model, generator=torch.Generator(device=dev)
+                            .manual_seed(17), device=dev).to(torch.bfloat16)
+
+            def run(params, impl):
+                xg = x.clone().requires_grad_(True)
+                for v in params.values():
+                    v.grad = None
+                _sync(dev)
+                _reset_peak(dev)
+                t0 = time.perf_counter()
+                y, lb, st = moe.apply(params, xg, cfg, impl=impl, capacity_factor=cf,
+                                      shard_ctx=ctx if impl == "ep" else None,
+                                      with_stats=True)
+                loss = 0.5 * y.float().square().mean() + step.LB_LOSS_WEIGHT * lb
+                loss.backward()
+                _sync(dev)
+                return dict(s=time.perf_counter() - t0, peak=_peak_gib(dev), y=y.detach(),
+                            loss=loss.detach(), drop=st["drop_rate"].item(),
+                            grads=dict(x=xg.grad, **{n: params[n].grad for n in names}))
+
+            # an EP layer runs twice (whether the runs are bitwise equal is
+            # reported), a TP layer once
+            dist.barrier()
+            first = run(mine, "ep")
+            same = None
+            if want_path == "ep":
+                dist.barrier()
+                got = run(mine, "ep")
+                same = torch.equal(first["y"], got["y"]) and all(
+                    torch.equal(first["grads"][n], got["grads"][n]) for n in got["grads"])
+            else:
+                got = first
+            del first
+            dist.barrier()
+            used = card_used()                   # every rank's sharded run cached
+            release()
+            lay = rep["layers"][arch] = dict(
+                path=moe.sharded_path(cfg, world), want=want_path, E=E, top_k=k,
+                d=cfg.d_model, d_ff=cfg.d_ff, T=T, cf=cf, s=got["s"], peak=got["peak"],
+                bitwise=same, stats_nan=math.isnan(got["drop"]), card_used=used,
+                slices={n: list(mine[n].shape) for n in names},
+                norms={n: got["grads"][n].float().norm().item() for n in ("x", "router")}
+                | {"y": got["y"].float().norm().item()})
+            dist.barrier()
+            if rank == 0:
+                oracles = {impl: run(held["full"], impl) for impl in ("capacity", "dense")}
+                lay["oracle_s"] = {i: o["s"] for i, o in oracles.items()}
+                lay["oracle_peak"] = max(o["peak"] for o in oracles.values())
+                lay["drop"] = oracles["capacity"]["drop"]
+                lay["y"] = {i: _errs(got["y"], o["y"]) for i, o in oracles.items()}
+                lay["loss"] = {i: abs(got["loss"].item() - o["loss"].item())
+                               / abs(o["loss"].item()) for i, o in oracles.items()}
+                gaps = {i: Gap() for i in oracles}
+                for i, o in oracles.items():
+                    for n in ("x", "router"):
+                        gaps[i].add(n, got["grads"][n], o["grads"][n])
+            for kk in range(world):
+                if rank not in (0, kk):
+                    continue
+                part = [got["grads"][n] for n in names if n != "router"]
+                if kk:
+                    part = to_rank0(part, kk)
+                if rank == 0:
+                    for i, o in oracles.items():
+                        cut = expert_shards({"l": {"moe": {n: o["grads"][n] for n in names}}},
+                                            assign, mesh, coords={"data": 0, "model": kk})
+                        for n, g in zip([n for n in names if n != "router"], part):
+                            gaps[i].add(n, g, cut["l"]["moe"][n])
+                    del part
+            if rank == 0:
+                lay["grads"] = {i: g.total() for i, g in gaps.items()}
+                lay["grads_by_leaf"] = {i: g.by_leaf() for i, g in gaps.items()}
+                del oracles, gaps
+            del held, mine, got, x
+            release()
+            dist.barrier()
+
+        # (b) Jamba's Mamba scan at full width: sharded over channels on every
+        # rank; the unsharded naive scan on rank 0 first (its graph freed
+        # before the sharded ones are built)
+        sc = plan["scan"]
+        jcfg = cfg_of(sc["arch"])
+        di, N, B, S = mamba.dims(jcfg)[0], jcfg.ssm_d_state, sc["B"], sc["S"]
+        gen = torch.Generator(device=dev).manual_seed(18)
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device=dev)
+
+        ins = [rnd(B, S, di), torch.nn.functional.softplus(rnd(B, S, di)), rnd(B, S, N),
+               rnd(B, S, N), -torch.exp(0.3 * rnd(di, N)), rnd(di)]
+        cot_y, cot_h = rnd(B, S, di) / math.sqrt(B * S * di), rnd(B, di, N) / math.sqrt(B * di * N)
+        msize = world
+        chans = slice(rank * di // msize, (rank + 1) * di // msize)
+
+        def scan(fn, sl):
+            leaves = [a.clone().requires_grad_(True) for a in ins]
+            _sync(dev)
+            _reset_peak(dev)
+            t0 = time.perf_counter()
+            y, h = fn(*leaves)
+            loss = (y * cot_y).sum() + (h * cot_h[:, sl]).sum()
+            loss.backward()
+            _sync(dev)
+            return dict(s=time.perf_counter() - t0, peak=_peak_gib(dev), y=y.detach(),
+                        h=h.detach(), grads=[a.grad for a in leaves])
+
+        if rank == 0:
+            oracle = scan(mamba.ssm_scan_xla, slice(None))
+            release()
+        dist.barrier()
+        got = scan(lambda *a: mamba.ssm_scan_sharded(*a, ctx), chans)
+        dist.barrier()
+        used = card_used()
+        hs = [torch.empty_like(got["h"]) for _ in range(msize)]
+        dist.all_gather(hs, got["h"].contiguous(), group=mesh.get_group("model"))
+        rep["scan"] = dict(di=di, N=N, B=B, S=S, s=got["s"], peak=got["peak"], card_used=used,
+                           h_shape=list(got["h"].shape))
+        if rank == 0:
+            rep["scan"]["oracle_s"], rep["scan"]["oracle_peak"] = oracle["s"], oracle["peak"]
+            rep["scan"]["y"] = _max_rel(got["y"], oracle["y"])
+            rep["scan"]["h"] = _max_rel(torch.cat(hs, 1), oracle["h"])
+            rep["scan"]["grads"] = {n: _max_rel(a, b) for n, a, b in zip(
+                ("u", "dt", "B", "C", "A", "D"), got["grads"], oracle["grads"])}
+            del oracle
+        del ins, got, hs, cot_y, cot_h
+        release()
+        dist.barrier()
+
+        # (c) Mixtral-8x7B, 2 layers at full width, under FwdCtx(shard_ctx,
+        # moe_impl="ep") on ranks 0-3, then rank 0's single-process step on
+        # the whole model (after ranks 1-3 keep only their expert gradients)
+        mp = plan["model"]
+        m_world = mp["world"]
+        mesh4 = make_mesh((1, m_world), ("data", "model"), ranks=list(range(m_world)),
+                          device_type=dev.type)
+        mcfg = cfg_of(mp["arch"], n_layers=mp["n_layers"])
+        batch = {kk: torch.as_tensor(v, device=dev) for kk, v in
+                 np.load(os.path.join(tmp, "model_batch.npz")).items()}
+        held = {}
+
+        def build_model():
+            held["mine"] = expert_shards(model.init(mcfg, seed=0, device=dev), assign, mesh4)
+
+        in_turns(build_model, range(m_world))
+        if rank < m_world:
+            mine = held.pop("mine")
+            ctx4 = (mesh4, ("data",), ("model",))
+            pfa.reset_launches()
+            _sync(dev)
+            _reset_peak(dev)
+            t0 = time.perf_counter()
+            loss = step.make_loss_fn(mcfg, FwdCtx(shard_ctx=ctx4, moe_impl="ep"))(mine, batch)
+            loss.backward()
+            _sync(dev)
+            rep["model"] = dict(s=time.perf_counter() - t0, peak=_peak_gib(dev),
+                                card_used=card_used(), loss=loss.item(),
+                                path=moe.sharded_path(mcfg, m_world),
+                                launches=[[*key, n] for key, n in pfa.LAUNCHES.items()],
+                                n_params=sum(a.numel() for a in tree_leaves(mine)))
+            del loss                          # its graph holds the leaves
+            grads = {p: a.grad for p, a in tree_paths(mine)}
+            experts = sorted(p for p in grads if "/moe/w_" in p)
+            if rank:
+                grads = {p: grads[p] for p in experts}
+            del mine
+            release()
+        dist.barrier()
+        if rank == 0:
+            params = model.init(mcfg, seed=0, device=dev)
+            _sync(dev)
+            _reset_peak(dev)
+            t0 = time.perf_counter()
+            want_loss = step.make_loss_fn(mcfg, FwdCtx())(params, batch)
+            want_loss.backward()
+            _sync(dev)
+            rep["model"].update(oracle_loss=want_loss.item(), oracle_s=time.perf_counter() - t0,
+                                oracle_peak=_peak_gib(dev))
+            want_loss = want_loss.item()      # its graph holds the leaves
+            oracle = tree_map(lambda a: a.grad, params)
+            del params
+            release()
+            want = dict(tree_paths(oracle))
+            gap, got2 = Gap(), 0.0
+            for p, g in grads.items():
+                if p not in experts:
+                    gap.add(p, g, want[p])
+                    got2 += g.float().norm().item() ** 2
+        for kk in range(m_world):
+            if rank not in (0, kk):
+                continue
+            part = [grads[p] for p in experts]
+            if kk:
+                part = to_rank0(part, kk)
+            if rank == 0:
+                cut = dict(tree_paths(expert_shards(oracle, assign, mesh4,
+                                                    coords={"data": 0, "model": kk})))
+                for p, g in zip(experts, part):
+                    gap.add(p, g, cut[p])
+                    got2 += g.float().norm().item() ** 2
+                del cut
+            del part
+        if rank == 0:
+            want_norm = math.sqrt(sum(gap.ref.values()))
+            rep["model"]["rel"] = {
+                "loss": abs(rep["model"]["loss"] - want_loss) / abs(want_loss),
+                "grad_norm": abs(math.sqrt(got2) - want_norm) / want_norm,
+                "grads": gap.total()}
+            del oracle, want
+        grads = None
+        held.clear()
+        release()
+        dist.barrier()
+    finally:
+        rep["rank_s"] = time.perf_counter() - t_rank
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as fh:
+            json.dump(rep, fh)
+        dist.destroy_process_group()
+
+
+# Seconds the parent waits for phase 16's ranks
+SHARD_TIMEOUT_S = 900
+
+
+def phase_shard(dev, timing, launches, max_err, model_batch, plan=None):
+    """Phase 16: the sharded layer paths (``moe.apply_ep_shard_map``,
+    ``moe._apply_tp_shard_map``, ``mamba.ssm_scan_sharded``,
+    ``FwdCtx.shard_ctx``) on ``plan["world"]`` gloo ranks that share the card
+    (``SHARD_PLAN``; each rank is ``shard_rank`` in a process of its own, on a
+    ``FileStore`` in a temporary directory).  ``model_batch``: the row the
+    Mixtral model check trains on ({name: (1, S)}).  Prints each rank's path,
+    seconds and peak and rank 0's comparisons; fails if a rank fails or
+    exits non-zero, or on any mismatch."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import packed_flash_attention as pfa
+
+    plan = plan or SHARD_PLAN
+    world, m_world = plan["world"], plan["model"]["world"]
+    t_phase = time.perf_counter()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info(dev)
+        log(f"[shard] before the ranks start: this process holds "
+            f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB allocated, "
+            f"{torch.cuda.memory_reserved(dev) / 2**30:.2f} GiB reserved; the card "
+            f"{(total - free) / 2**30:.2f} of {total / 2**30:.2f} GiB in use")
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "plan.json"), "w") as fh:
+            json.dump(plan, fh)
+        np.savez(os.path.join(tmp, "model_batch.npz"), **model_batch)
+        # expandable segments: a rank's freed pages go back to the card even
+        # where a kept slice shares the segment a whole layer was drawn in
+        # (the ranks share one card; no process can use another's cache)
+        env = dict(os.environ, OMP_NUM_THREADS="1",
+                   PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True",
+                   PYTHONPATH=os.pathsep.join(filter(None, [os.path.join(HERE, "src"),
+                                                            os.environ.get("PYTHONPATH")])))
+        logs = [open(os.path.join(tmp, f"rank{k}.log"), "w") for k in range(world)]
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--shard-rank",
+                                   str(k), tmp], stdout=logs[k], stderr=subprocess.STDOUT,
+                                  env=env, cwd=HERE) for k in range(world)]
+        deadline, first = time.monotonic() + SHARD_TIMEOUT_S, []
+        try:
+            while any(p.poll() is None for p in procs):
+                first = [k for k, p in enumerate(procs) if p.poll() not in (None, 0)]
+                if first or time.monotonic() > deadline:
+                    break
+                time.sleep(0.2)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+            for p in procs:
+                p.wait()
+            for f in logs:
+                f.close()
+        failed = [k for k, p in enumerate(procs) if p.returncode != 0]
+        if failed:
+            # the first rank to fail, and every rank whose log says more than
+            # that a peer went away
+            log(f"[shard] exit codes {[p.returncode for p in procs]}; first to fail {first}")
+            for k in failed:
+                with open(os.path.join(tmp, f"rank{k}.log")) as fh:
+                    text = fh.read()
+                if k in first or "closed by peer" not in text:
+                    log(f"[shard] rank {k} exited {procs[k].returncode}:\n{text[-6000:]}")
+            raise SystemExit(f"shard: ranks {failed} failed or timed out "
+                             f"({SHARD_TIMEOUT_S} s)")
+        reps = []
+        for k in range(world):
+            with open(os.path.join(tmp, f"rank{k}.json")) as fh:
+                reps.append(json.load(fh))
+    r0 = reps[0]
+    fmt = lambda xs, spec=".3f": "[" + ", ".join(f"{x:{spec}}" for x in xs) + "]"  # noqa: E731
+    log(f"[shard] {world} gloo ranks on {dev} ({'one card' if dev.type == 'cuda' else 'cpu'}),"
+        f" a (1, {world}) ('data', 'model') mesh; set-up per rank (gloo group, mesh, "
+        f"{world - 1} pair groups) {fmt([r['setup_s'] for r in reps], '.1f')} s")
+    ok = True
+
+    def check(cond, what):
+        nonlocal ok
+        if not cond:
+            ok = False
+            log(f"[shard] FAIL: {what}")
+
+    # (a) the MoE layers
+    tol_max, tol_rel = TOL["bfloat16"]
+    for arch, want_path in plan["layers"]:
+        lays = [r["layers"][arch] for r in reps]
+        a = lays[0]
+        paths = sorted({x["path"] for x in lays}, key=str)
+        log(f"[shard] {arch} MoE layer: E {a['E']} top-{a['top_k']}, d {a['d']}, d_ff "
+            f"{a['d_ff']}, T {a['T']} tokens, bf16, capacity factor {a['cf']:g} (oracle drop "
+            f"{a['drop']}); path on every rank {paths} (want {want_path}); rank 0's leaves "
+            f"{a['slices']}; forward + backward s per rank "
+            f"({'second call' if a['bitwise'] is not None else 'first call, set-up included'})"
+            f" {fmt([x['s'] for x in lays])}; "
+            f"peak GiB per rank {fmt([x['peak'] for x in lays], '.2f')} (rank 0 also holds "
+            f"the whole layer; the card: {a['card_used']:.1f} GiB in use after the sharded "
+            f"runs); " + (f"two sharded runs bitwise equal on every rank: "
+                          f"{all(x['bitwise'] for x in lays)} (by rank "
+                          f"{[x['bitwise'] for x in lays]}; reported only); "
+                          if a["bitwise"] is not None else "")
+            + f"rank 0's whole-layer oracles "
+            f"{ {i: round(s, 3) for i, s in a['oracle_s'].items()} } s, peak "
+            f"{a['oracle_peak']:.2f} GiB")
+        for i in ("capacity", "dense"):
+            e, m, rel = a["y"][i]
+            log(f"[shard] {arch} sharded vs {i}: y max|err| {e:.3e} (tol {tol_max * m:.3e}), "
+                f"||err||/||y|| {rel:.3e} (tol {tol_rel:.0e}); loss relative "
+                f"{a['loss'][i]:.3e} (tol {PATH_TOL['loss']:.0e}); ||g - g_{i}|| / ||g_{i}|| "
+                f"{a['grads'][i]:.3e} (tol {PATH_TOL['grads']:.0e}; by leaf "
+                + ", ".join(f"{n} {v:.2e}" for n, v in a["grads_by_leaf"][i].items()) + ")")
+            check(e <= tol_max * m and rel <= tol_rel and a["loss"][i] <= PATH_TOL["loss"]
+                  and a["grads"][i] <= PATH_TOL["grads"], f"{arch} disagrees with {i}")
+        check(paths == [want_path], f"{arch}: paths {paths}, want {want_path}")
+        check(a["drop"] == 0.0, f"{arch}: the oracle dropped {a['drop']}")
+        check(all(x["stats_nan"] for x in lays), f"{arch}: a rank's stats are not NaN")
+        for n in ("x", "router", "y"):
+            v0 = a["norms"][n]
+            check(all(abs(x["norms"][n] - v0) <= 1e-6 * v0 for x in lays),
+                  f"{arch}: the replicated {n} differs across ranks "
+                  f"{[x['norms'][n] for x in lays]}")
+
+    # (b) the Mamba scan
+    sc = r0["scan"]
+    log(f"[shard] Jamba Mamba scan, di {sc['di']} ({sc['h_shape'][1]} channels a rank), N "
+        f"{sc['N']}, B {sc['B']}, S {sc['S']}, fp32, ssm_scan_sharded (naive inner scan): "
+        f"forward + backward s per rank {fmt([r['scan']['s'] for r in reps])}, peak GiB per "
+        f"rank {fmt([r['scan']['peak'] for r in reps], '.2f')} (the card: {sc['card_used']:.1f} "
+        f"GiB in use after them); rank 0's unsharded "
+        f"ssm_scan_xla {sc['oracle_s']:.3f} s, peak {sc['oracle_peak']:.2f} GiB; max|err| / "
+        f"max|oracle|: y {sc['y']:.3e}, h {sc['h']:.3e} (tol {SHARD_SCAN_TOL['y']:.0e}), "
+        f"gradients " + ", ".join(f"{n} {v:.3e}" for n, v in sc["grads"].items())
+        + f" (tol {SHARD_SCAN_TOL['grads']:.0e})")
+    check(sc["y"] <= SHARD_SCAN_TOL["y"] and sc["h"] <= SHARD_SCAN_TOL["h"]
+          and max(sc["grads"].values()) <= SHARD_SCAN_TOL["grads"],
+          "the sharded Mamba scan disagrees with the unsharded one")
+
+    # (c) Mixtral's 2 layers on ranks 0-3
+    mreps = [r["model"] for r in reps[:m_world]]
+    m0 = mreps[0]
+    n_k = []
+    for mr in mreps:
+        by = {}
+        for *key, n in mr["launches"]:
+            by[tuple(key)] = by.get(tuple(key), 0) + n
+        n_k.append({kn: sum(n for key, n in by.items() if key[0] == COUNTER[kn]
+                            and key[1] == pfa.TENSOR_CORE) for kn in COUNTER})
+        off = {key: n for key, n in by.items() if key[1] != pfa.TENSOR_CORE}
+        check(not off, f"model: K1-K3 launches off the tensor cores: {off}")
+        if dev.type == "cuda":
+            check(min(n_k[-1].values()) > 0, f"model: a kernel was not launched: {n_k[-1]}")
+    log(f"[shard] {plan['model']['arch']}, {plan['model']['n_layers']} layers at full width, "
+        f"FwdCtx(shard_ctx, moe_impl='ep') on a (1, {m_world}) mesh of ranks 0-{m_world - 1}: "
+        f"path {[mr['path'] for mr in mreps]}; params a rank "
+        f"{fmt([mr['n_params'] / 1e9 for mr in mreps])} B; loss {m0['loss']:.6f} (rank 0's "
+        f"single-process capacity path {m0['oracle_loss']:.6f}); forward + backward s per rank "
+        f"(first call, set-up included) {fmt([mr['s'] for mr in mreps])} (single process "
+        f"after it {m0['oracle_s']:.3f} s); peak GiB "
+        f"per rank {fmt([mr['peak'] for mr in mreps], '.2f')} (the card: "
+        f"{max(mr['card_used'] for mr in mreps):.1f} GiB in use; single process "
+        f"{m0['oracle_peak']:.2f}); " + ", ".join(
+            f"{key} relative {v:.3e} (tol {PATH_TOL[key]:.0e})" for key, v in m0["rel"].items())
+        + f"; K1/K2/K3 tensor-core launches by rank "
+        f"{[[n[kn] for kn in COUNTER] for n in n_k]}")
+    check(all(mr["path"] == "ep" for mr in mreps), "model: not the EP path")
+    check(all(v <= PATH_TOL[key] for key, v in m0["rel"].items()),
+          "model: the sharded step disagrees with the single-process step")
+    check(len({mr["loss"] for mr in mreps}) == 1, f"model: the ranks' losses differ "
+          f"{[mr['loss'] for mr in mreps]}")
+    log(f"[shard] phase {time.perf_counter() - t_phase:.1f} s (ranks' own "
+        f"{fmt([r['rank_s'] for r in reps], '.1f')} s)")
+    if not ok:
+        raise SystemExit("shard: a check failed")
+    if dev.type == "cuda":
+        for kn in COUNTER:
+            launches[(kn, "shard")] = sum(n[kn] for n in n_k)
+            timing[(kn, "shard")] = timing[(kn, "mixtral")]
+            max_err[(kn, "shard")] = max_err[(kn, "mixtral")]
+
+
+# Phase 17: the three drivers as ``python -m`` processes, and the lines each
+# must print (the reference's)
+DRIVERS = {
+    "plan_inspector": [r"^\[theta\*\] encoder \(tp=\d+", r"^\[theta\*\] expected makespan",
+                       r"^\[baselines\]", r"^ +tp= ?\d+ pp=\d: makespan"],
+    "serve_decode": [r"^tiny-swa +generated", r"^tiny-hybrid +generated",
+                     r"^tiny-rwkv +generated"],
+    "serve_mllm": [r"^request A done", r"^request B done", r"^request C done",
+                   r"^fifo +goodput", r"^slo +goodput",
+                   r"^real backend \(.*\): (\d+)/\1 completed"],
+}
+
+
+def phase_drivers(dev):
+    """Phase 17: ``python -m repro_torch.{plan_inspector,serve_decode,
+    serve_mllm}`` on ``dev`` (subprocesses, default arguments): each must
+    exit 0 and print the reference's lines (``DRIVERS``; the real backend's
+    ``completed n/n``)."""
+    t_phase = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [
+        os.path.join(HERE, "src"), os.environ.get("PYTHONPATH")])))
+    for mod, patterns in DRIVERS.items():
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", f"repro_torch.{mod}", "--device", dev.type],
+                           capture_output=True, text=True, timeout=600, env=env, cwd=HERE)
+        for ln in r.stdout.splitlines():
+            log(f"[drivers] {mod} | {ln}")
+        missing = [p for p in patterns if not re.search(p, r.stdout, re.M)]
+        log(f"[drivers] {mod}: exit {r.returncode}, {time.perf_counter() - t0:.1f} s, "
+            f"missing lines {missing}")
+        if r.returncode != 0 or missing:
+            log(r.stderr[-4000:])
+            raise SystemExit(f"drivers: {mod} failed (exit {r.returncode}, missing {missing})")
+    log(f"[drivers] phase {time.perf_counter() - t_phase:.1f} s")
+
 
 def main() -> int:
     import torch
@@ -2553,7 +3188,14 @@ def main() -> int:
     # 15. elastic ---------------------------------------------------------- #
     phase_elastic(dev, timing, launches, max_err, q_batch0, check_routes)
 
-    # 16. summary ---------------------------------------------------------- #
+    # 16. shard ------------------------------------------------------------ #
+    phase_shard(dev, timing, launches, max_err,
+                {k: v[0] for k, v in arch_batches["mixtral"][0].items()})
+
+    # 17. drivers ---------------------------------------------------------- #
+    phase_drivers(dev)
+
+    # 18. summary ---------------------------------------------------------- #
     kernels = []
     for (kn, shape), r in timing.items():
         kernels.append({
@@ -2569,4 +3211,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--shard-rank"]:
+        shard_rank(int(sys.argv[2]), sys.argv[3])
+        sys.exit(0)
     sys.exit(main())

@@ -13,6 +13,13 @@ Implementations of the scan, chosen by ``impl``:
   * ``chunked`` — ``ssm_scan_chunked``, the reference's closed-form chunked
                  XLA scan in plain PyTorch (used outside training).
 
+With a ``shard_ctx`` ``(mesh, batch_axes, model_axes)`` and any impl but
+``kernel``, training and prefill scan through ``ssm_scan_sharded``: each
+model rank scans its slice of the channels (the naive scan, or the chunked
+one for ``chunked``), the reference's ``shard_map`` path on
+``torch.distributed`` ranks.  The kernels run unsharded, as the reference's
+Pallas path does.
+
 Decode carries (conv window, ssm state) in a cache and steps them in plain
 PyTorch, whatever ``impl`` says.
 
@@ -26,8 +33,11 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.common.collectives import (as_axes, gather_over, grad_sum_over,
+                                            split_over)
 from repro_torch.common.types import ModelConfig
 from repro_torch.kernels import ops as kops
+from repro_torch.launch.mesh import axes_size
 
 IMPLS = ("naive", "kernel", "chunked")
 
@@ -139,6 +149,34 @@ def ssm_scan_chunked(u, dt, B_t, C_t, A, D, *, chunk: int = 32, h0=None):
     return y.to(u.dtype), h
 
 
+def ssm_scan_sharded(u, dt, B_t, C_t, A, D, shard_ctx, chunked: bool = False):
+    """The selective scan with its channels split over the model axes of
+    ``shard_ctx = (mesh, batch_axes, model_axes)``, on this rank.
+
+    u, dt: (B, S, di), this rank's rows, every channel (replicated over the
+    model axes, as the port's layers hold full-width activations); B_t, C_t:
+    (B, S, N); A: (di, N); D: (di,).  The rank scans its di / msize channels
+    of u, dt, A and D (``ssm_scan_xla``, or ``ssm_scan_chunked`` when
+    ``chunked``); B_t and C_t serve every channel slice, so their gradient is
+    all-reduced over the model axes once a layer, not a step.  Returns (y
+    (B, S, di), every channel, all-gathered; h (B, di / msize, N), this
+    rank's channels of the final state).  Backward: u, dt, A and D get their
+    whole gradient on every rank (the slices' all-gathered), and y's
+    cotangent, which every rank holds whole, is cut to this rank's channels.
+    Where the model axes do not divide di, the reference's spec leaves the
+    channels replicated: every rank scans all of them."""
+    mesh, _, m_axes = shard_ctx
+    m_axes = as_axes(m_axes)
+    inner = ssm_scan_chunked if chunked else ssm_scan_xla
+    msize = axes_size(mesh, m_axes)
+    if msize == 1 or u.shape[-1] % msize:
+        return inner(u, dt, B_t, C_t, A, D)
+    cut = lambda t, dim: split_over(t, mesh, m_axes, dim)       # noqa: E731
+    y, h = inner(cut(u, -1), cut(dt, -1), grad_sum_over(B_t, mesh, m_axes),
+                 grad_sum_over(C_t, mesh, m_axes), cut(A, 0), cut(D, 0))
+    return gather_over(y, mesh, m_axes, -1), h
+
+
 def init_cache(cfg: ModelConfig, batch: int, dtype=torch.float32, device="cuda"):
     di, R, N, K = dims(cfg)
     return {"conv": torch.zeros((batch, K - 1, di), dtype=dtype, device=device),
@@ -170,10 +208,13 @@ def _bcdt(params, u, cfg: ModelConfig):
     return dt, B_t, C_t
 
 
-def apply(params, x, cfg: ModelConfig, *, cache=None, impl: str = "kernel"):
+def apply(params, x, cfg: ModelConfig, *, cache=None, impl: str = "kernel",
+          shard_ctx=None):
     """x: (B, S, d) -> (B, S, d), training / prefill without a cache; or
     x (B, 1, d) with the layer's cache -> ((B, 1, d), the cache), its conv
-    window and state written in place."""
+    window and state written in place.  The scan as the reference picks it:
+    the kernels, else the sharded scan under ``shard_ctx``, else chunked,
+    else naive."""
     A = -torch.exp(params["A_log"].float())
     D = params["D"]
     if cache is not None:
@@ -196,13 +237,16 @@ def apply(params, x, cfg: ModelConfig, *, cache=None, impl: str = "kernel"):
     u, z = _project(params, x, cfg)
     u = F.silu(causal_conv(u, params["conv_w"], params["conv_b"]))
     dt, B_t, C_t = _bcdt(params, u, cfg)
+    if impl not in IMPLS:
+        raise ValueError(f"selective-scan impl {impl!r} not in {IMPLS}")
     if impl == "kernel":
         y, _ = kops.mamba_scan(u, dt, B_t, C_t, A, D)
+    elif shard_ctx is not None:
+        y, _ = ssm_scan_sharded(u, dt, B_t, C_t, A, D, shard_ctx,
+                                chunked=impl == "chunked")
     elif impl == "naive":
         y, _ = ssm_scan_xla(u, dt, B_t, C_t, A, D)
-    elif impl == "chunked":
-        y, _ = ssm_scan_chunked(u, dt, B_t, C_t, A, D)
     else:
-        raise ValueError(f"selective-scan impl {impl!r} not in {IMPLS}")
+        y, _ = ssm_scan_chunked(u, dt, B_t, C_t, A, D)
     y = y * F.silu(z)
     return y @ params["out_proj"].to(x.dtype)

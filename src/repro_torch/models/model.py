@@ -46,12 +46,15 @@ class FwdCtx:
     attn_impl: str = "kernel"        # naive | kernel
     attn_block: int = 512            # tile of the plain attention versions
     ssm_impl: str = "kernel"         # naive | kernel | chunked (Mamba, RWKV6)
-    moe_impl: str = "capacity"       # dense | capacity
+    moe_impl: str = "capacity"       # dense | capacity | ep (with shard_ctx)
     capacity_factor: float = 2.0     # (moe.apply's own default is 1.25)
     moe_chunk_tokens: int = 0        # >0: chunked+checkpointed dispatch
     return_hidden: bool = False      # skip the LM head
     decode_pos: Any = None           # scalar or (B,) positions in decode mode
     remat: bool = True
+    # (mesh, batch_axes, model_axes): this rank's share of the sharded Mamba
+    # scan and, with moe_impl "ep", of the sharded MoE paths; None: unsharded
+    shard_ctx: Any = None
 
 
 def _layer_init(gen, cfg: ModelConfig, kind: LayerKind, ffn_kind: FFNKind,
@@ -89,11 +92,12 @@ def _layer_apply(lp, x, cfg: ModelConfig, kind: LayerKind, ffn_kind: FFNKind,
             y, _ = attention.apply(lp["attn"], h, cfg, cache=cache["attn"],
                                    decode_pos=ctx.decode_pos)
     elif kind == LayerKind.MAMBA:
-        # the chunked scan only outside training, as in the reference
+        # the chunked scan only outside training, as in the reference (whose
+        # "xla" then takes the sharded scan under shard_ctx, as naive does here)
         impl = "naive" if ctx.mode == "train" and ctx.ssm_impl == "chunked" \
             else ctx.ssm_impl
         if cache is None:
-            y = mamba.apply(lp["mamba"], h, cfg, impl=impl)
+            y = mamba.apply(lp["mamba"], h, cfg, impl=impl, shard_ctx=ctx.shard_ctx)
         else:
             y, _ = mamba.apply(lp["mamba"], h, cfg, cache=cache["mamba"], impl=impl)
     else:
@@ -108,7 +112,8 @@ def _layer_apply(lp, x, cfg: ModelConfig, kind: LayerKind, ffn_kind: FFNKind,
     if ffn_kind == FFNKind.MOE:
         y2, lb, st = moe.apply(lp["moe"], h2, cfg, impl=ctx.moe_impl,
                                capacity_factor=ctx.capacity_factor,
-                               chunk_tokens=ctx.moe_chunk_tokens, with_stats=True)
+                               chunk_tokens=ctx.moe_chunk_tokens,
+                               shard_ctx=ctx.shard_ctx, with_stats=True)
         return x + y2, (lb, st["drop_rate"].detach(), st["imbalance"].detach())
     return x + ffn.apply(lp["ffn"], h2, cfg), None
 

@@ -4,6 +4,7 @@ from repro_torch.sharding.partition import (
     PartitionSpec,
     sanitize_spec,
     param_specs,
+    expert_shards,
     opt_state_specs,
     named,
     to_placements,
@@ -17,6 +18,7 @@ __all__ = [
     "PartitionSpec",
     "sanitize_spec",
     "param_specs",
+    "expert_shards",
     "opt_state_specs",
     "named",
     "to_placements",

@@ -33,6 +33,8 @@ import re
 from dataclasses import dataclass
 from typing import Any, Optional, Sequence, Tuple
 
+import torch
+
 from repro_torch.common.pytree import tree_map_with_path_str, tree_paths
 from repro_torch.launch.mesh import axes_size, mesh_shape
 
@@ -241,6 +243,10 @@ def _shape(leaf) -> tuple:
     return tuple(leaf.shape)
 
 
+# MoE expert weights: sharded on E or d_ff (param_specs, expert_shards)
+_EXPERT_LEAF = r"/moe/(w_gate|w_up|w_down)$"
+
+
 def param_specs(params: Any, assignment: ModuleAssignment, mesh) -> Any:
     """PartitionSpec tree matching ``params`` (per-layer leaves)."""
 
@@ -253,7 +259,7 @@ def param_specs(params: Any, assignment: ModuleAssignment, mesh) -> Any:
         # MoE expert weights: expert-dim sharding when E divides the tensor
         # axes, else shard the FFN dim (granite 40e / mixtral 8e vs a
         # 16-wide model axis).
-        m = re.search(r"/moe/(w_gate|w_up|w_down)$", path)
+        m = re.search(_EXPERT_LEAF, path)
         if m and a.tensor:
             tsize = axes_size(mesh, tuple(a.tensor))
             E = shape[-3]
@@ -283,6 +289,44 @@ def param_specs(params: Any, assignment: ModuleAssignment, mesh) -> Any:
         return spec
 
     return tree_map_with_path_str(rule, params)
+
+
+def expert_shards(params: Any, assignment: ModuleAssignment, mesh,
+                  coords: Optional[dict] = None) -> Any:
+    """One rank's tree for the sharded MoE paths: each expert leaf
+    (``.../moe/w_up``, ``w_gate``, ``w_down``) becomes the slice that its
+    ``param_specs`` spec gives this rank (the expert dim where E divides the
+    tensor axes, else d_ff: the reference's shard_map ``in_specs``); every
+    other leaf is returned as it is, whole (the port's layers hold
+    full-width activations and replicated weights).
+
+    ``coords`` maps each mesh axis to this rank's index on it (default: the
+    ``DeviceMesh``'s coordinate of the calling rank; give it with a
+    stand-in mesh).  A slice is a new leaf (a contiguous copy) that requires
+    grad if its source did.  Paths match as in ``param_specs``: one layer's MoE
+    params go in under a parent key, e.g. ``{"layer": {"moe": p}}``."""
+    if coords is None:
+        coords = {a: mesh.get_local_rank(a) for a in mesh_shape(mesh)}
+    specs = dict(tree_paths(param_specs(params, assignment, mesh)))
+
+    def cut(path: str, leaf):
+        if not re.search(_EXPERT_LEAF, path):
+            return leaf
+        out = leaf.detach()
+        for dim, entry in enumerate(specs[path]):
+            if entry is None:
+                continue
+            axes = (entry,) if isinstance(entry, str) else tuple(entry)
+            idx = 0
+            for a in axes:
+                idx = idx * axes_size(mesh, a) + coords[a]
+            size = out.shape[dim] // axes_size(mesh, axes)
+            out = out.narrow(dim, idx * size, size)
+        # a copy, so the whole leaf can be freed
+        return out.clone(memory_format=torch.contiguous_format).requires_grad_(
+            leaf.requires_grad)
+
+    return tree_map_with_path_str(cut, params)
 
 
 def _with_zero(spec: P, shape: Sequence[int], mesh, zero_axes: Tuple[str, ...]) -> P:
