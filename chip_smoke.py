@@ -158,7 +158,19 @@ Phases, each reported on its own lines:
                 256 H100s), ``serve_decode`` and ``serve_mllm`` on the card: exit 0
                 and the reference's lines (theta* and baselines; ``generated`` for each
                 tiny family; the three parts, the real backend ``completed n/n``);
- 18. summary  — one JSON line of the kernels, the card line, then the result.
+ 18. dryrun   — the dry run (``repro_torch.launch.dryrun``, ``phase_dryrun``): (a)
+                gemma-2b's step as phase 12(e) runs it (full size, fp32 parameters,
+                ``FwdCtx()``, 2 x 2 rows of 2048 tokens) once for real on the card under
+                the ``hlo_stats`` recorder and once on fake CUDA tensors on a 1x1 mesh of
+                a fake process group: the dry run's argument bytes against the live
+                bytes of the parameters, moments and batch, and its FLOPs against the
+                real step's, each within 1 %; its predicted peak printed beside
+                ``max_memory_allocated``; (b) ``python -m repro_torch.launch.dryrun``
+                as subprocesses, side by side, on the production meshes
+                (``DRYRUN_COMBOS``, as many as fit the phase's budget): each must
+                exit 0; peak GB a rank, ``fits_80gb``, FLOPs a rank and collective bytes
+                by kind printed from its record;
+ 19. summary  — one JSON line of the kernels, the card line, then the result.
 
 Counts are set to 0 just before a training path and read just after it.
 Any failed check raises and the script exits non-zero.
@@ -1740,6 +1752,142 @@ DRIVERS = {
 }
 
 
+# Phase 18's production dry runs; each runs as its own process (fake tensors
+# on the host's cores), all side by side, and must end within
+# DRYRUN_TIMEOUT_S.  Wanted, in order: internvl2-2b train_4k, mixtral-8x7b
+# train_4k, jamba 2x16x16 train_4k, deepseek-7b decode_32k, one prefill_32k.
+# The phase keeps those that fit its budget: a run's host seconds grow with
+# layers x microbatches, and with 8 of them side by side Mixtral's took
+# 342 s and Jamba's longer (PERF.md §6); those two are in
+# tools/dryrun_sweep.py's sweep instead.
+DRYRUN_COMBOS = [("internvl2-2b", "train_4k", False), ("deepseek-7b", "decode_32k", False),
+                 ("gemma-2b", "prefill_32k", False)]
+DRYRUN_TIMEOUT_S = 300
+DRYRUN_TOL = 0.01          # grounding: argument bytes and FLOPs, relative
+
+
+def phase_dryrun(dev, cfg, batch, combos=DRYRUN_COMBOS, timeout_s=DRYRUN_TIMEOUT_S):
+    """Phase 18 (see the module doc): ``cfg`` and ``batch`` (numpy, leading
+    microbatch axis) are phase 12(e)'s gemma-2b step."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.common.pytree import tree_leaves, tree_map
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import hlo_stats
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model
+    from repro_torch.models.model import FwdCtx
+    from repro_torch.sharding.partition import P
+    from repro_torch.train import optim, step
+    t_phase = time.perf_counter()
+
+    # (a) grounding: the same step for real, then on fake tensors at 1x1
+    lr = 3e-4
+    params = model.init(cfg, seed=0, device=dev)
+    opt = optim.adamw_init(params)
+    b = step.as_tensors(batch, device=dev)
+    live = sum(t.numel() * t.element_size() for t in
+               tree_leaves(params) + tree_leaves(opt["m"]) + tree_leaves(opt["v"])
+               + list(b.values()))
+    train_step = step.make_train_step(cfg, optim.AdamWConfig(), ctx=FwdCtx())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    real = hlo_stats.analyze(lambda: train_step(params, opt, b, lr))
+    torch.cuda.synchronize()
+    real_s, real_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+    del params, opt, b
+    torch.cuda.empty_cache()
+    started = D.start_fake_group(1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device_type=dev.type)
+        with D._fake_mode():
+            p = model.init(cfg, seed=0, device=dev)
+            specs = tree_map(lambda _: P(), p)         # one rank holds everything
+            o = optim.adamw_init(p)
+            fparams = D._placed_tree(p, specs, mesh, requires_grad=True)
+            fopt = {"m": D._placed_tree(o["m"], specs, mesh),
+                    "v": D._placed_tree(o["v"], specs, mesh), "step": 0}
+            fb = {k: D._sds(tuple(v.shape), torch.int32, mesh, P(), dev)
+                  for k, v in batch.items()}
+            built = D.Built(lambda p_, o_, b_: train_step(p_, o_, b_, lr), (fparams, fopt, fb),
+                            {}, in_place=(fparams, fopt),
+                            loops={"microbatches": len(next(iter(batch.values()))),
+                                   "llm_layers": cfg.n_layers})
+            mem, fake, trace_s = D.trace_step(built)
+    finally:
+        if started:
+            dist.destroy_process_group()
+    arg_gap = abs(mem["argument_bytes"] - live) / live
+    flop_gap = abs(fake.flops - real.flops) / real.flops
+    log(f"[dryrun] grounding gemma-2b (phase 12(e)'s step, 1x1 mesh): argument bytes "
+        f"{mem['argument_bytes']} vs live {live} (gap {arg_gap:.2e}, tol {DRYRUN_TOL}); "
+        f"FLOPs {fake.flops:.6e} vs the real step's {real.flops:.6e} (gap {flop_gap:.2e}, "
+        f"tol {DRYRUN_TOL}); HBM bytes {fake.hbm_bytes:.4e} vs {real.hbm_bytes:.4e}; "
+        f"predicted peak {mem['peak_per_chip'] / 2**30:.2f} GiB vs max_memory_allocated "
+        f"{real_peak / 2**30:.2f} GiB (gap {(mem['peak_per_chip'] - real_peak) / 2**30:+.2f} "
+        f"GiB); real step {real_s:.2f} s under the recorder, fake run {trace_s:.1f} s")
+    if arg_gap > DRYRUN_TOL or flop_gap > DRYRUN_TOL:
+        raise SystemExit("dryrun: the grounding step disagrees with the real one")
+
+    # (b) production meshes, side by side
+    out_dir = os.path.join(HERE, "build", "dryrun_smoke")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [
+        os.path.join(HERE, "src"), os.environ.get("PYTHONPATH")])))
+    os.makedirs(out_dir, exist_ok=True)
+    procs = []
+    for arch, shape, mp in combos:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+               "--shape", shape, "--out", out_dir, "--device", dev.type] + (
+            ["--multi-pod"] if mp else [])
+        # output to a file: a pipe nobody reads while it runs would fill and stall it
+        logf = open(os.path.join(out_dir, f"{arch}__{shape}.log"), "w+")
+        procs.append((arch, shape, mp, time.perf_counter(), logf, subprocess.Popen(
+            cmd, env=env, cwd=HERE, stdout=logf, stderr=subprocess.STDOUT)))
+    failed, ended = [], {}
+    while len(ended) < len(procs) and time.perf_counter() - t_phase < timeout_s:
+        for i, (*_, proc) in enumerate(procs):
+            if i not in ended and proc.poll() is not None:
+                ended[i] = time.perf_counter()
+        time.sleep(0.5)
+    for i, (arch, shape, mp, t0, logf, proc) in enumerate(procs):
+        if proc.poll() is None:
+            proc.kill()
+            failed.append(f"{arch} {shape}: over {timeout_s} s")
+        proc.wait()
+        logf.seek(0)
+        out = logf.read()
+        logf.close()
+        for ln in out.splitlines():
+            if ln.startswith("[dryrun]"):
+                log(f"[dryrun] {arch} {shape} | {ln}")
+        mesh_name = "2x16x16" if mp else "16x16"
+        path = os.path.join(out_dir, f"{arch}__{shape}__{mesh_name}.json")
+        if proc.returncode != 0 or not os.path.exists(path):
+            failed.append(f"{arch} {shape} {mesh_name}: exit {proc.returncode}")
+            tb = ""
+            if os.path.exists(path):
+                with open(path) as f:
+                    tb = json.load(f).get("traceback", "")
+            log(tb or out[-3000:])
+            continue
+        with open(path) as f:
+            rec = json.load(f)
+        if rec.get("skipped"):
+            log(f"[dryrun] {arch} x {shape} x {mesh_name}: {rec['reason']}")
+            continue
+        hlo = rec["hlo"]
+        log(f"[dryrun] {arch} x {shape} x {mesh_name}: exit 0 after "
+            f"{ended[i] - t0:.1f} s (trace {rec['trace_s']} s); peak "
+            f"{rec['memory']['peak_per_chip'] / 1e9:.2f} GB a rank, fits_80gb "
+            f"{rec['fits_80gb']}; FLOPs a rank {hlo['flops']:.4e} (model FLOPs / ranks / "
+            f"FLOPs {rec['model_flops'] / rec['n_chips'] / hlo['flops']:.3f}); collective "
+            f"bytes {json.dumps(hlo['collective_bytes'])}")
+    log(f"[dryrun] phase {time.perf_counter() - t_phase:.1f} s")
+    if failed:
+        raise SystemExit(f"dryrun: {failed}")
+
+
 def phase_drivers(dev):
     """Phase 17: ``python -m repro_torch.{plan_inspector,serve_decode,
     serve_mllm}`` on ``dev`` (subprocesses, default arguments): each must
@@ -3195,7 +3343,10 @@ def main() -> int:
     # 17. drivers ---------------------------------------------------------- #
     phase_drivers(dev)
 
-    # 18. summary ---------------------------------------------------------- #
+    # 18. dryrun ----------------------------------------------------------- #
+    phase_dryrun(dev, gemma_cfg, arch_batches["gemma"][0])
+
+    # 19. summary ---------------------------------------------------------- #
     kernels = []
     for (kn, shape), r in timing.items():
         kernels.append({

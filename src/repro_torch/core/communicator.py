@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.common.collectives import all_gather, as_axes, axis_index
 from repro_torch.launch.mesh import axes_size, mesh_shape
+from repro_torch.sharding.local import is_dtensor
 from repro_torch.sharding.partition import P, AxisAssignment, sanitize_spec
 
 
@@ -60,6 +61,8 @@ def make_communicator(mesh, enc: AxisAssignment,
     sizes = mesh_shape(mesh)
 
     def communicate(x):
+        if is_dtensor(x):
+            return _communicate_dtensor(mesh, enc, llm, x)
         # the LLM's batch axes that divide the global batch, as the
         # reference sanitises its constraint; axes of size 1 move nothing
         src = tuple(enc.batch)
@@ -74,6 +77,27 @@ def make_communicator(mesh, enc: AxisAssignment,
         return _Reshard.apply(x, mesh, src, dst)
 
     return communicate
+
+
+def _communicate_dtensor(mesh, enc: AxisAssignment, llm: AxisAssignment, x):
+    """The communicator on a DTensor, inside ``local_map``: rows in over the
+    encoder's batch axes that divide the batch, out over the LLM's (each
+    sanitised as the reference sanitises its specs), moved by ``_Reshard``."""
+    from repro_torch.sharding.local import local_call, placements
+    sizes = mesh_shape(mesh)
+    rest = (None,) * (x.ndim - 1)
+    pl, axes = [], []
+    for a in (enc, llm):
+        spec = sanitize_spec(P(tuple(a.batch) or None, *rest), tuple(x.shape), mesh)
+        pl.append(placements(mesh, spec, x.shape))
+        axes.append(tuple(ax for ax in as_axes(spec[0] if len(spec) else None)
+                          if sizes[ax] > 1))
+    src, dst = axes
+
+    def move(xl):
+        return xl.view_as(xl) if src == dst else _Reshard.apply(xl, mesh, src, dst)
+
+    return local_call(move, mesh, (x,), (pl[0],), pl[1])
 
 
 # --------------------------------------------------------------------------- #

@@ -199,14 +199,76 @@ def scan_bwd(u, dt, B_t, C_t, A, D, h_init, dy, chunk):
     return du, ddt, dB, dC, dA, dD
 
 
+# --------------------------------------------------------------------------- #
+# The entry points as torch ops: a real tensor takes the kernel (or with
+# ``plain`` the plain version); a fake tensor (the dry run's,
+# ``launch/dryrun.py``) takes the shape-only implementation and never
+# reaches ctypes.  FLOP formulas: the reference's selective-scan count
+# (``bench.mamba_flops``), the backward at 2x, as the §6 bounds count them.
+# --------------------------------------------------------------------------- #
+Tensor = torch.Tensor
+
+
+@torch.library.custom_op("repro_torch::mamba_fwd", mutates_args=())
+def mamba_fwd_op(u: Tensor, dt: Tensor, B_t: Tensor, C_t: Tensor, A: Tensor,
+                 D: Tensor, chunk: int, plain: bool) -> tuple[Tensor, Tensor]:
+    """K4 (or ``fwd_plain``) → (y, h_init)."""
+    return (fwd_plain if plain else scan_fwd)(u, dt, B_t, C_t, A, D, chunk)
+
+
+@mamba_fwd_op.register_fake
+def _(u, dt, B_t, C_t, A, D, chunk, plain):
+    Bsz, S, di = u.shape
+    return torch.empty_like(u), u.new_empty(
+        (Bsz, -(-S // chunk), di, A.shape[1]), dtype=torch.float32)
+
+
+@torch.library.custom_op("repro_torch::mamba_bwd", mutates_args=())
+def mamba_bwd_op(u: Tensor, dt: Tensor, B_t: Tensor, C_t: Tensor, A: Tensor,
+                 D: Tensor, h_init: Tensor, dy: Tensor, chunk: int,
+                 plain: bool) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor,
+                                       Tensor]:
+    """K5 (or ``bwd_plain``) → (du, ddt, dB, dC, dA, dD partials)."""
+    return (bwd_plain if plain else scan_bwd)(u, dt, B_t, C_t, A, D, h_init,
+                                              dy, chunk)
+
+
+@mamba_bwd_op.register_fake
+def _(u, dt, B_t, C_t, A, D, h_init, dy, chunk, plain):
+    Bsz, S, di = u.shape
+    N = A.shape[1]
+    f32 = lambda *shape: u.new_empty(shape, dtype=torch.float32)   # noqa: E731
+    n_cblk = -(-di // C_BLK)
+    return (f32(Bsz, S, di), f32(Bsz, S, di), f32(n_cblk, Bsz, S, N),
+            f32(n_cblk, Bsz, S, N), f32(Bsz, di, N), f32(Bsz, di))
+
+
+def _register_flops():
+    from torch.utils.flop_counter import register_flop_formula
+
+    def ops(u, A):
+        return 6.0 * u[0] * u[1] * u[2] * A[1]     # bench.mamba_flops
+
+    @register_flop_formula(torch.ops.repro_torch.mamba_fwd)
+    def _fwd(u, dt, B_t, C_t, A, *args, **kwargs):
+        return int(ops(u, A))
+
+    @register_flop_formula(torch.ops.repro_torch.mamba_bwd)
+    def _bwd(u, dt, B_t, C_t, A, *args, **kwargs):
+        return int(2 * ops(u, A))
+
+
+_register_flops()
+
+
 class _Scan(torch.autograd.Function):
-    """K4 forward, K5 backward (the reference's ``custom_vjp``).  ``plain``
-    selects the plain versions whatever the device."""
+    """K4 forward, K5 backward (the reference's ``custom_vjp``), through the
+    ops above.  ``plain`` selects the plain versions whatever the device."""
 
     @staticmethod
     def forward(ctx, u, dt, B_t, C_t, A, D, chunk, plain):
-        fwd = fwd_plain if plain else scan_fwd
-        y, h_init = fwd(u, dt, B_t, C_t, A, D, chunk)
+        y, h_init = torch.ops.repro_torch.mamba_fwd(u, dt, B_t, C_t, A, D,
+                                                    chunk, plain)
         ctx.save_for_backward(u, dt, B_t, C_t, A, D, h_init)
         ctx.chunk, ctx.plain = chunk, plain
         return y
@@ -214,9 +276,8 @@ class _Scan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         u, dt, B_t, C_t, A, D, h_init = ctx.saved_tensors
-        bwd = bwd_plain if ctx.plain else scan_bwd
-        du, ddt, dB, dC, dA, dD = bwd(u, dt, B_t, C_t, A, D, h_init,
-                                      dy.contiguous(), ctx.chunk)
+        du, ddt, dB, dC, dA, dD = torch.ops.repro_torch.mamba_bwd(
+            u, dt, B_t, C_t, A, D, h_init, dy.contiguous(), ctx.chunk, ctx.plain)
         return (du.to(u.dtype), ddt.to(dt.dtype), dB.sum(0).to(B_t.dtype),
                 dC.sum(0).to(C_t.dtype), dA.sum(0).to(A.dtype),
                 dD.sum(0).to(D.dtype), None, None)

@@ -283,33 +283,112 @@ def flash_bwd_dkv(q, k, v, seg_q, seg_k, dout, lse, delta, causal, window,
                          window, block_q, block_k)
 
 
-_KERNELS = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
-_PLAIN = (fwd_plain, bwd_dq_plain, bwd_dkv_plain)
+# --------------------------------------------------------------------------- #
+# The entry points as torch ops: a real tensor takes the wrapper of its
+# kind (the kernel, or with ``plain`` the plain version); a fake tensor (the
+# dry run's, ``launch/dryrun.py``) takes the shape-only implementation and
+# never reaches ctypes.  Their FLOP formulas count the §6 bound's operations
+# at a dense mask (a fake tensor has no segment ids to read): 4·D a (q, k)
+# pair and query head forward, 1.5x that for K2, 2x for K3.
+# --------------------------------------------------------------------------- #
+Tensor = torch.Tensor
+
+
+@torch.library.custom_op("repro_torch::pfa_fwd", mutates_args=())
+def pfa_fwd_op(q: Tensor, k: Tensor, v: Tensor, seg_q: Tensor, seg_k: Tensor,
+               causal: bool, window: int, block_q: int, block_k: int,
+               plain: bool) -> tuple[Tensor, Tensor]:
+    """K1 (or ``fwd_plain``) → (o, lse)."""
+    fwd = fwd_plain if plain else flash_fwd
+    return fwd(q, k, v, seg_q, seg_k, causal, window, block_q, block_k)
+
+
+@pfa_fwd_op.register_fake
+def _(q, k, v, seg_q, seg_k, causal, window, block_q, block_k, plain):
+    return torch.empty_like(q), q.new_empty(q.shape[:-1], dtype=torch.float32)
+
+
+@torch.library.custom_op("repro_torch::pfa_bwd_dq", mutates_args=())
+def pfa_bwd_dq_op(q: Tensor, k: Tensor, v: Tensor, seg_q: Tensor, seg_k: Tensor,
+                  dout: Tensor, lse: Tensor, delta: Tensor, causal: bool,
+                  window: int, block_q: int, block_k: int, plain: bool) -> Tensor:
+    """K2 (or ``bwd_dq_plain``) → dq."""
+    fn = bwd_dq_plain if plain else flash_bwd_dq
+    return fn(q, k, v, seg_q, seg_k, dout, lse, delta, causal, window,
+              block_q, block_k)
+
+
+@pfa_bwd_dq_op.register_fake
+def _(q, k, v, seg_q, seg_k, dout, lse, delta, causal, window, block_q,
+      block_k, plain):
+    return torch.empty_like(q)
+
+
+@torch.library.custom_op("repro_torch::pfa_bwd_dkv", mutates_args=())
+def pfa_bwd_dkv_op(q: Tensor, k: Tensor, v: Tensor, seg_q: Tensor, seg_k: Tensor,
+                   dout: Tensor, lse: Tensor, delta: Tensor, causal: bool,
+                   window: int, block_q: int, block_k: int,
+                   plain: bool) -> tuple[Tensor, Tensor]:
+    """K3 (or ``bwd_dkv_plain``) → (dk, dv)."""
+    fn = bwd_dkv_plain if plain else flash_bwd_dkv
+    return fn(q, k, v, seg_q, seg_k, dout, lse, delta, causal, window,
+              block_q, block_k)
+
+
+@pfa_bwd_dkv_op.register_fake
+def _(q, k, v, seg_q, seg_k, dout, lse, delta, causal, window, block_q,
+      block_k, plain):
+    return torch.empty_like(k), torch.empty_like(v)
+
+
+def fwd_ops(q_shape, k_shape) -> float:
+    """K1's operations at a dense mask: 4·D·H·B·Sq·Sk."""
+    B, KH, G, Sq, D = q_shape
+    return 4.0 * D * KH * G * B * Sq * k_shape[2]
+
+
+def _register_flops():
+    from torch.utils.flop_counter import register_flop_formula
+
+    @register_flop_formula(torch.ops.repro_torch.pfa_fwd)
+    def _fwd(q, k, *args, **kwargs):
+        return int(fwd_ops(q, k))
+
+    @register_flop_formula(torch.ops.repro_torch.pfa_bwd_dq)
+    def _dq(q, k, *args, **kwargs):
+        return int(1.5 * fwd_ops(q, k))
+
+    @register_flop_formula(torch.ops.repro_torch.pfa_bwd_dkv)
+    def _dkv(q, k, *args, **kwargs):
+        return int(2.0 * fwd_ops(q, k))
+
+
+_register_flops()
 
 
 class _Flash(torch.autograd.Function):
-    """K1 forward, K2 + K3 backward (the reference's ``custom_vjp``).
-    ``plain`` selects the plain versions whatever the device."""
+    """K1 forward, K2 + K3 backward (the reference's ``custom_vjp``), through
+    the ops above.  ``plain`` selects the plain versions whatever the
+    device."""
 
     @staticmethod
     def forward(ctx, q, k, v, seg_q, seg_k, causal, window, block_q, block_k,
                 plain):
-        fwd = (_PLAIN if plain else _KERNELS)[0]
-        o, lse = fwd(q, k, v, seg_q, seg_k, causal, window, block_q, block_k)
+        o, lse = torch.ops.repro_torch.pfa_fwd(q, k, v, seg_q, seg_k, causal,
+                                               window, block_q, block_k, plain)
         ctx.save_for_backward(q, k, v, seg_q, seg_k, o, lse)
-        ctx.args = (causal, window, block_q, block_k)
-        ctx.plain = plain
+        ctx.args = (causal, window, block_q, block_k, plain)
         return o
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, seg_q, seg_k, o, lse = ctx.saved_tensors
-        _, dq_fn, dkv_fn = _PLAIN if ctx.plain else _KERNELS
         dout = dout.contiguous()
         # Δ = rowsum(do ⊙ o), outside the kernels as in the reference
         delta = torch.sum(dout.float() * o.float(), dim=-1).contiguous()
-        dq = dq_fn(q, k, v, seg_q, seg_k, dout, lse, delta, *ctx.args)
-        dk, dv = dkv_fn(q, k, v, seg_q, seg_k, dout, lse, delta, *ctx.args)
+        args = (q, k, v, seg_q, seg_k, dout, lse, delta, *ctx.args)
+        dq = torch.ops.repro_torch.pfa_bwd_dq(*args)
+        dk, dv = torch.ops.repro_torch.pfa_bwd_dkv(*args)
         return dq, dk, dv, None, None, None, None, None, None, None
 
 

@@ -171,14 +171,73 @@ def wkv_bwd(r, k, v, w, u, s_init, dy, ds, chunk):
     return dr, dk, dv, dw, du
 
 
+# --------------------------------------------------------------------------- #
+# The entry points as torch ops: a real tensor takes the kernel (or with
+# ``plain`` the plain version); a fake tensor (the dry run's,
+# ``launch/dryrun.py``) takes the shape-only implementation and never
+# reaches ctypes.  FLOP formulas: the operations the §6 bounds count
+# (``bench.rwkv6_fwd_ops``, ``bench.rwkv6_bwd_ops``).
+# --------------------------------------------------------------------------- #
+Tensor = torch.Tensor
+
+
+@torch.library.custom_op("repro_torch::rwkv6_fwd", mutates_args=())
+def rwkv6_fwd_op(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor,
+                 chunk: int, plain: bool) -> tuple[Tensor, Tensor, Tensor]:
+    """K6 (or ``fwd_plain``) → (y, s_final, s_init)."""
+    return (fwd_plain if plain else wkv_fwd)(r, k, v, w, u, chunk)
+
+
+@rwkv6_fwd_op.register_fake
+def _(r, k, v, w, u, chunk, plain):
+    B, H, S, M = r.shape
+    f32 = lambda *shape: r.new_empty(shape, dtype=torch.float32)   # noqa: E731
+    return torch.empty_like(r), f32(B, H, M, M), f32(B, H, -(-S // chunk), M, M)
+
+
+@torch.library.custom_op("repro_torch::rwkv6_bwd", mutates_args=())
+def rwkv6_bwd_op(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor,
+                 s_init: Tensor, dy: Tensor, ds: Tensor, chunk: int,
+                 plain: bool) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """K7 (or ``bwd_plain``) → (dr, dk, dv, dw, du partial)."""
+    return (bwd_plain if plain else wkv_bwd)(r, k, v, w, u, s_init, dy, ds, chunk)
+
+
+@rwkv6_bwd_op.register_fake
+def _(r, k, v, w, u, s_init, dy, ds, chunk, plain):
+    B, H, S, M = r.shape
+    f32 = lambda *shape: r.new_empty(shape, dtype=torch.float32)   # noqa: E731
+    return (f32(B, H, S, M), f32(B, H, S, M), f32(B, H, S, M), f32(B, H, S, M),
+            f32(B, H, M))
+
+
+def _register_flops():
+    from torch.utils.flop_counter import register_flop_formula
+
+    def elems(r):
+        B, H, S, M = r
+        return float(B * H * S * M * M)
+
+    @register_flop_formula(torch.ops.repro_torch.rwkv6_fwd)
+    def _fwd(r, *args, **kwargs):
+        return int(5 * elems(r))                    # bench.rwkv6_fwd_ops
+
+    @register_flop_formula(torch.ops.repro_torch.rwkv6_bwd)
+    def _bwd(r, *args, **kwargs):
+        return int(11 * elems(r))                   # bench.rwkv6_bwd_ops
+
+
+_register_flops()
+
+
 class _Scan(torch.autograd.Function):
-    """K6 forward, K7 backward (the reference's ``custom_vjp``).  ``plain``
-    selects the plain versions whatever the device."""
+    """K6 forward, K7 backward (the reference's ``custom_vjp``), through the
+    ops above.  ``plain`` selects the plain versions whatever the device."""
 
     @staticmethod
     def forward(ctx, r, k, v, w, u, chunk, plain):
-        fwd = fwd_plain if plain else wkv_fwd
-        y, s_final, s_init = fwd(r, k, v, w, u, chunk)
+        y, s_final, s_init = torch.ops.repro_torch.rwkv6_fwd(r, k, v, w, u,
+                                                             chunk, plain)
         ctx.save_for_backward(r, k, v, w, u, s_init)
         ctx.chunk, ctx.plain = chunk, plain
         ctx.set_materialize_grads(False)
@@ -193,8 +252,8 @@ class _Scan(torch.autograd.Function):
         dy = torch.zeros_like(r) if dy is None else dy.contiguous()
         ds = (torch.zeros((B, H, M, M), dtype=torch.float32, device=r.device)
               if ds is None else ds.float().contiguous())
-        bwd = bwd_plain if ctx.plain else wkv_bwd
-        dr, dk, dv, dw, du = bwd(r, k, v, w, u, s_init, dy, ds, ctx.chunk)
+        dr, dk, dv, dw, du = torch.ops.repro_torch.rwkv6_bwd(
+            r, k, v, w, u, s_init, dy, ds, ctx.chunk, ctx.plain)
         return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw.to(w.dtype),
                 du.sum(0).to(u.dtype), None, None)
 

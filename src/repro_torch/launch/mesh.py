@@ -25,7 +25,8 @@ def mesh_shape(mesh) -> Dict[str, int]:
     """``{axis name: size}`` in the mesh's axis order."""
     from torch.distributed.device_mesh import DeviceMesh
     if isinstance(mesh, DeviceMesh):
-        return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+        # .shape, not .mesh.shape: the rank tensor is rebuilt on every read
+        return dict(zip(mesh.mesh_dim_names, mesh.shape))
     return dict(mesh.shape)
 
 
@@ -107,10 +108,14 @@ def _concrete(device) -> torch.device:
 
 
 def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
-    """16x16 (256 ranks) or 2x16x16 two-pod (512 ranks)."""
+    """16x16 (256 ranks) or 2x16x16 two-pod (512 ranks): every rank of the
+    process group, or its first 256 (512) where it has more."""
+    import torch.distributed as dist
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return make_mesh(shape, axes, device_type=device_type)
+    n = 512 if multi_pod else 256
+    ranks = range(n) if dist.is_initialized() and dist.get_world_size() > n else None
+    return make_mesh(shape, axes, ranks=ranks, device_type=device_type)
 
 
 def make_host_mesh(shape=(2, 2), axes=("data", "model"),

@@ -23,6 +23,7 @@ import torch
 from repro_torch.common.types import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers.rope import apply_rope
+from repro_torch.sharding.local import is_dtensor
 
 NEG_INF = -1e30
 IMPLS = ("naive", "kernel")
@@ -149,6 +150,55 @@ def cache_write(cache, k_new, v_new, pos):
     return cache
 
 
+def _decode_dtensor(q, k_new, v_new, cache, pos, window):
+    """Decode on DTensor caches whose slots are sharded (the dry run's
+    flash-decoding layout, ``launch.dryrun.cache_specs``), inside
+    ``local_map``: each rank writes the new token if its slot falls in the
+    rank's slice of the ring, scores its slice, and the softmax statistics
+    and p·V partials combine over the slot axes (max without gradient, then
+    sums).  Rows over the batch axes; q, k_new and v_new whole a row."""
+    from repro_torch.common.collectives import axis_index, max_over, sum_over
+    from repro_torch.launch.mesh import axes_size
+    from repro_torch.sharding.local import axes_of, local_call, placements
+    from repro_torch.sharding.partition import P
+    mesh = cache["k"].device_mesh
+    b, seq = axes_of(cache["k"], 0), axes_of(cache["k"], 1)
+    n_seq = axes_size(mesh, seq)
+    row = placements(mesh, P(b or None, None, None, None), q.shape)
+    pos_pl = placements(mesh, P(b or None), pos.shape)
+    c_pl = [list(cache[n].placements) for n in ("k", "v", "kpos")]
+
+    def local(ql, kn, vn, ck, cv, kpos, pos_b):
+        B, C_loc = ck.shape[0], ck.shape[1]
+        off = axis_index(mesh, seq) * C_loc if seq else 0
+        slot = (pos_b % (C_loc * n_seq)).long() - off
+        mine = (slot >= 0) & (slot < C_loc)
+        slot = slot.clamp(0, C_loc - 1)
+        rows = torch.arange(B, device=slot.device)
+        keep = mine[:, None, None]
+        ck[rows, slot] = torch.where(keep, kn[:, 0].to(ck.dtype), ck[rows, slot])
+        cv[rows, slot] = torch.where(keep, vn[:, 0].to(cv.dtype), cv[rows, slot])
+        kpos[rows, slot] = torch.where(mine, pos_b, kpos[rows, slot])
+        _, _, H, D = ql.shape
+        KH = ck.shape[2]
+        qg = ql.reshape(B, KH, H // KH, D).to(ck.dtype)
+        sc = torch.einsum("bkgd,bskd->bkgs", qg, ck).float() * D ** -0.5
+        valid = (kpos >= 0) & (kpos <= pos_b[:, None])
+        if window and window > 0:
+            valid = valid & (pos_b[:, None] - kpos < window)
+        sc = torch.where(valid[:, None, None, :], sc, NEG_INF)
+        m = max_over(sc.amax(-1), mesh, seq) if seq else sc.amax(-1)
+        p = torch.exp(sc - m[..., None])
+        den, num = p.sum(-1), torch.einsum("bkgs,bskd->bkgd", p.to(cv.dtype), cv).float()
+        if seq:
+            den, num = sum_over(den, mesh, seq), sum_over(num, mesh, seq)
+        return (num / den[..., None]).reshape(B, 1, H, D).to(ql.dtype)
+
+    return local_call(local, mesh, (q, k_new, v_new, cache["k"], cache["v"],
+                                    cache["kpos"], pos),
+                      (row, row, row, *c_pl, pos_pl), row)
+
+
 def apply(params, x, cfg: ModelConfig, *, positions=None, segment_ids=None,
           cache=None, decode_pos=None, impl: str = "kernel", block: int = 512):
     """Self-attention layer.
@@ -167,9 +217,12 @@ def apply(params, x, cfg: ModelConfig, *, positions=None, segment_ids=None,
         if cfg.use_rope:
             q = apply_rope(q, pos[:, None], cfg.rope_theta)
             k = apply_rope(k, pos[:, None], cfg.rope_theta)
-        cache = cache_write(cache, k, v, pos)
-        out = attend_cache(q, cache["k"], cache["v"], cache["kpos"], pos,
-                           window=window)
+        if is_dtensor(cache["k"]):
+            out = _decode_dtensor(q, k, v, cache, pos, window)
+        else:
+            cache = cache_write(cache, k, v, pos)
+            out = attend_cache(q, cache["k"], cache["v"], cache["kpos"], pos,
+                               window=window)
         return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype)), cache
     if positions is None:
         positions = torch.arange(S, device=x.device)[None].expand(B, S)

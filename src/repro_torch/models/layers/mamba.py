@@ -38,6 +38,7 @@ from repro_torch.common.collectives import (as_axes, gather_over, grad_sum_over,
 from repro_torch.common.types import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.launch.mesh import axes_size
+from repro_torch.sharding.local import is_dtensor
 
 IMPLS = ("naive", "kernel", "chunked")
 
@@ -208,6 +209,65 @@ def _bcdt(params, u, cfg: ModelConfig):
     return dt, B_t, C_t
 
 
+_NAMES = ("in_proj", "conv_w", "conv_b", "x_proj", "dt_proj", "dt_bias", "A_log",
+          "D", "out_proj")
+
+
+def _apply_dtensor(params, x, cfg: ModelConfig, impl: str, shard_ctx):
+    """The layer (training / prefill) on DTensors, inside ``local_map`` as
+    Megatron's tensor parallelism over the model axes of ``shard_ctx``:
+    each rank takes x's rows (over the batch axes, whole over the model
+    axes), the u and z columns of its channel slice from the whole
+    ``in_proj``, its channels of the conv, ``x_proj``'s rows, ``dt_proj``'s
+    columns, A, D and ``out_proj``'s rows; one all-reduce of the (B, S,
+    R + 2N) ``x_proj`` output a layer (identity backward) gives every rank
+    dt's low rank and the whole B_t, C_t; the scan runs on the rank's
+    channels; the output comes back partial over the model axes.  Without
+    model axes, or where they do not divide d_inner, every rank runs every
+    channel.  A rank's weight gradients are over its rows (partial over the
+    batch axes; ``in_proj``'s over its columns too)."""
+    from repro_torch.common.collectives import axis_index, sum_over
+    from repro_torch.sharding.local import axes_of, local_call, partial_over, placements
+    from repro_torch.sharding.partition import P
+    mesh = x.device_mesh
+    di, R, N, _ = dims(cfg)
+    b = axes_of(x, 0)
+    m = tuple(shard_ctx[2]) if shard_ctx is not None else ()
+    n = axes_size(mesh, m)
+    if n == 1 or di % n:
+        m, n = (), 1
+    c = m or None
+    spec = {"in_proj": P(), "conv_w": P(c, None), "conv_b": P(c), "x_proj": P(c, None),
+            "dt_proj": P(None, c), "dt_bias": P(c), "A_log": P(c, None), "D": P(c),
+            "out_proj": P(c, None)}
+    w_pl = [placements(mesh, spec[k], params[k].shape) for k in _NAMES]
+    x_pl = placements(mesh, P(b or None, None, None), x.shape)
+    grad_pl = [partial_over(pl, mesh, b + (m if k == "in_proj" else ()))
+               for k, pl in zip(_NAMES, w_pl)]
+
+    def local(xl, *ws):
+        p = dict(zip(_NAMES, ws))
+        dl = di // n
+        lo = axis_index(mesh, m) * dl if m else 0
+        w_in = p["in_proj"].to(xl.dtype)
+        u = xl @ w_in[:, lo:lo + dl]
+        z = xl @ w_in[:, di + lo:di + lo + dl]
+        u = F.silu(causal_conv(u, p["conv_w"], p["conv_b"]))
+        proj = u @ p["x_proj"].to(u.dtype)
+        if m:
+            proj = sum_over(proj, mesh, m)
+        dt_low, B_t, C_t = proj[..., :R], proj[..., R:R + N], proj[..., R + N:]
+        dt = F.softplus(dt_low @ p["dt_proj"].to(u.dtype) + p["dt_bias"].to(u.dtype))
+        A = -torch.exp(p["A_log"].float())
+        scan = {"kernel": kops.mamba_scan, "naive": ssm_scan_xla,
+                "chunked": ssm_scan_chunked}[impl]
+        y = scan(u, dt, B_t, C_t, A, p["D"])[0] * F.silu(z)
+        return y @ p["out_proj"].to(xl.dtype)
+
+    return local_call(local, mesh, (x, *(params[k] for k in _NAMES)), (x_pl, *w_pl),
+                      partial_over(x_pl, mesh, m), (partial_over(x_pl, mesh, m), *grad_pl))
+
+
 def apply(params, x, cfg: ModelConfig, *, cache=None, impl: str = "kernel",
           shard_ctx=None):
     """x: (B, S, d) -> (B, S, d), training / prefill without a cache; or
@@ -234,11 +294,13 @@ def apply(params, x, cfg: ModelConfig, *, cache=None, impl: str = "kernel",
         cache["conv"].copy_(conv_state)
         cache["ssm"].copy_(h)
         return out[:, None], cache
+    if impl not in IMPLS:
+        raise ValueError(f"selective-scan impl {impl!r} not in {IMPLS}")
+    if is_dtensor(x):
+        return _apply_dtensor(params, x, cfg, impl, shard_ctx)
     u, z = _project(params, x, cfg)
     u = F.silu(causal_conv(u, params["conv_w"], params["conv_b"]))
     dt, B_t, C_t = _bcdt(params, u, cfg)
-    if impl not in IMPLS:
-        raise ValueError(f"selective-scan impl {impl!r} not in {IMPLS}")
     if impl == "kernel":
         y, _ = kops.mamba_scan(u, dt, B_t, C_t, A, D)
     elif shard_ctx is not None:

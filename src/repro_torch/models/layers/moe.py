@@ -31,6 +31,7 @@ from repro_torch.common.collectives import (as_axes, axis_index, grad_sum_over,
 from repro_torch.common.types import ModelConfig
 from repro_torch.launch.mesh import axes_size
 from repro_torch.models.layers.ffn import GATED, _act
+from repro_torch.sharding.local import is_dtensor
 
 
 def init(gen, cfg: ModelConfig, dtype=torch.float32):
@@ -50,7 +51,12 @@ def init(gen, cfg: ModelConfig, dtype=torch.float32):
 def _expert_fractions(top_e, E: int):
     """f_e: the share of the T·k routed assignments that go to expert e
     (the reference's mean of one-hots: an exact count over T·k)."""
-    return torch.bincount(top_e.reshape(-1), minlength=E).float() / top_e.numel()
+    idx = top_e.reshape(-1)
+    # counts by index_add (bincount's length would depend on the data,
+    # which a fake tensor does not hold): exact, as bincount's
+    counts = torch.zeros(E, dtype=torch.int64, device=idx.device).index_add_(
+        0, idx, torch.ones_like(idx))
+    return counts.float() / top_e.numel()
 
 
 def _route(params, x2d, cfg: ModelConfig):
@@ -151,8 +157,9 @@ def _combine(ye, row, w, T: int, k: int, dtype):
 
 
 def apply_capacity(params, x, cfg: ModelConfig, *, capacity_factor: float = 1.25,
-                   with_stats: bool = False):
-    """Scatter/gather dispatch with fixed per-expert capacity.
+                   constrain=None, with_stats: bool = False):
+    """Scatter/gather dispatch with fixed per-expert capacity.  ``constrain``
+    (the reference's) pins the layout of the (E, C, d) buffers.
 
     With ``with_stats`` also returns {"drop_rate", "imbalance"}: the
     fraction of (token, expert) assignments zeroed by the capacity clip, and
@@ -166,7 +173,12 @@ def apply_capacity(params, x, cfg: ModelConfig, *, capacity_factor: float = 1.25
     row, keep = _slots(top_e.reshape(-1), E, C)              # (T*k,) token-major
     flat_w = torch.where(keep, top_w.reshape(-1), 0.0)
     xe = _scatter(x2d, row, keep, E * C, k).view(E, C, d)
-    ye = _expert_ffn(params, xe, cfg).reshape(E * C, d)
+    if constrain is not None:
+        xe = constrain(xe)
+    ye = _expert_ffn(params, xe, cfg)
+    if constrain is not None:
+        ye = constrain(ye)
+    ye = ye.reshape(E * C, d)
     y = _combine(ye, row, flat_w, T, k, x.dtype).reshape(B, S, d)
     if with_stats:
         stats = {"drop_rate": 1.0 - keep.float().sum() / (T * k),
@@ -176,7 +188,7 @@ def apply_capacity(params, x, cfg: ModelConfig, *, capacity_factor: float = 1.25
 
 
 def apply_capacity_chunked(params, x, cfg: ModelConfig, *,
-                           capacity_factor: float = 1.25,
+                           capacity_factor: float = 1.25, constrain=None,
                            chunk_tokens: int = 8192, with_stats: bool = False):
     """Token-chunked dispatch: bounds the (T·k, d) gather/scatter working set
     to one chunk; each chunk is checkpointed (non-reentrant, so it nests in
@@ -190,13 +202,13 @@ def apply_capacity_chunked(params, x, cfg: ModelConfig, *,
     n_chunks = T // c
     if n_chunks == 1:
         return apply_capacity(params, x, cfg, capacity_factor=capacity_factor,
-                              with_stats=with_stats)
+                              constrain=constrain, with_stats=with_stats)
     xc = x.reshape(n_chunks, 1, c, d)
     lb = drop = imb = torch.zeros((), device=x.device)
 
     def chunk_fn(xi):
         return apply_capacity(params, xi, cfg, capacity_factor=capacity_factor,
-                              with_stats=True)
+                              constrain=constrain, with_stats=True)
 
     ys = []
     for i in range(n_chunks):
@@ -324,8 +336,50 @@ def _apply_tp_shard_map(params, x, cfg: ModelConfig, shard_ctx, *,
     return y.reshape(B, S, d), _mean_over_batch(lb, mesh, b_axes)
 
 
+def _ep_dtensor(params, x, cfg: ModelConfig, shard_ctx, *,
+                capacity_factor: float = 1.25):
+    """``apply_ep_shard_map`` on DTensors, inside ``local_map`` at the
+    reference's specs: x's rows over the batch axes (replicated over the
+    model axes), the router whole, the expert leaves cut as ``param_specs``
+    cuts them (experts, or d_ff for the TP-expert path; where neither
+    divides, whole, and each rank takes the capacity path on its rows).  A
+    rank's weight gradients are over its own rows: partial over the batch
+    axes."""
+    from torch.distributed.tensor import Replicate
+    from repro_torch.sharding.local import local_call, partial_over, placements
+    from repro_torch.sharding.partition import P
+    mesh, b_axes, m_axes = shard_ctx
+    m_axes, b_axes = as_axes(m_axes), as_axes(b_axes)
+    path = sharded_path(cfg, axes_size(mesh, m_axes))
+    m = m_axes or None
+    if path == "ep":
+        spec = {"router": P(), "w_up": P(m, None, None), "w_gate": P(m, None, None),
+                "w_down": P(m, None, None)}
+    elif path == "tp":
+        spec = {"router": P(), "w_up": P(None, None, m), "w_gate": P(None, None, m),
+                "w_down": P(None, m, None)}
+    else:     # neither divides: every rank routes its rows through all experts
+        spec = {"router": P(), "w_up": P(), "w_gate": P(), "w_down": P()}
+    names = [n for n in ("router", "w_up", "w_gate", "w_down") if n in params]
+    w_pl = [placements(mesh, spec[n], params[n].shape) for n in names]
+    x_pl = placements(mesh, P(b_axes or None, None, None), x.shape)
+    scalar = [Replicate()] * len(x_pl)
+
+    def local(xl, *ws):
+        if path is None:
+            y, lb = apply_capacity(dict(zip(names, ws)), xl, cfg,
+                                   capacity_factor=capacity_factor)
+            return y, _mean_over_batch(lb, mesh, b_axes)
+        return apply_ep_shard_map(dict(zip(names, ws)), xl, cfg, shard_ctx,
+                                  capacity_factor=capacity_factor)
+
+    return local_call(local, mesh, (x, *(params[n] for n in names)),
+                      (x_pl, *w_pl), (x_pl, scalar),
+                      (x_pl, *(partial_over(p, mesh, b_axes) for p in w_pl)))
+
+
 def apply(params, x, cfg: ModelConfig, *, impl: str = "capacity",
-          capacity_factor: float = 1.25, chunk_tokens: int = 0,
+          capacity_factor: float = 1.25, constrain=None, chunk_tokens: int = 0,
           shard_ctx=None, with_stats: bool = False):
     """Dispatch to a MoE path; ``with_stats`` appends a
     {"drop_rate", "imbalance"} dict to the (y, lb) return.  The sharded
@@ -334,8 +388,8 @@ def apply(params, x, cfg: ModelConfig, *, impl: str = "capacity",
     if impl == "dense":
         return apply_dense(params, x, cfg, with_stats=with_stats)
     if impl == "ep" and shard_ctx is not None:
-        out = apply_ep_shard_map(params, x, cfg, shard_ctx,
-                                 capacity_factor=capacity_factor)
+        run = _ep_dtensor if is_dtensor(x) else apply_ep_shard_map
+        out = run(params, x, cfg, shard_ctx, capacity_factor=capacity_factor)
         if out is not None:
             if with_stats:
                 nan = torch.full((), float("nan"), device=x.device)
@@ -345,7 +399,8 @@ def apply(params, x, cfg: ModelConfig, *, impl: str = "capacity",
     if chunk_tokens:
         return apply_capacity_chunked(params, x, cfg,
                                       capacity_factor=capacity_factor,
+                                      constrain=constrain,
                                       chunk_tokens=chunk_tokens,
                                       with_stats=with_stats)
     return apply_capacity(params, x, cfg, capacity_factor=capacity_factor,
-                          with_stats=with_stats)
+                          constrain=constrain, with_stats=with_stats)

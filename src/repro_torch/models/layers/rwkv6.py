@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from repro_torch.common.types import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers.norms import group_norm_heads
+from repro_torch.sharding.local import is_dtensor, rows_local
 
 LORA_RANK = 32
 DECAY_LORA_RANK = 64
@@ -83,6 +84,14 @@ def _ddlerp(params, x, xprev):
     offs = torch.einsum("bsfr,frd->bsfd", a, params["lora_b"].to(x.dtype))
     mix = params["mix_base"].to(x.dtype)[None, None] + offs
     return x[:, :, None] + dx[:, :, None] * mix
+
+
+def _log_decay(params, x_w):
+    """log w_t = -exp(decay + lora(x_w)), f32 (B, S, d)."""
+    dlo = torch.tanh(x_w @ params["decay_lora_a"].to(x_w.dtype))
+    dec = params["decay_base"].float() + (
+        dlo @ params["decay_lora_b"].to(x_w.dtype)).float()
+    return -torch.exp(dec)
 
 
 def wkv_scan_xla(r, k, v, w, u, state0=None):
@@ -166,7 +175,14 @@ def time_mix(params, x, cfg: ModelConfig, *, cache=None, impl: str = "kernel"):
     prev = cache["tm_prev"].to(x.dtype) if cache is not None \
         else torch.zeros((B, d), dtype=x.dtype, device=x.device)
     xprev = _shift(x, prev)
-    mixed = _ddlerp(params, x, xprev)                        # (B,S,5,d)
+    if is_dtensor(x):
+        # the data-dependent mixes on each rank's rows (DTensor's own rules
+        # carry the low-rank products into strided shards it cannot multiply)
+        lerp = ("mix_x", "lora_a", "lora_b", "mix_base")
+        mixed = rows_local(lambda x, xp, *w: _ddlerp(dict(zip(lerp, w)), x, xp),
+                           (x, xprev), [params[n] for n in lerp], 4)
+    else:
+        mixed = _ddlerp(params, x, xprev)                    # (B,S,5,d)
     x_w, x_k, x_v, x_r, x_g = (mixed[:, :, i] for i in range(5))
 
     r = x_r @ params["wr"].to(x.dtype)
@@ -174,10 +190,12 @@ def time_mix(params, x, cfg: ModelConfig, *, cache=None, impl: str = "kernel"):
     v = x_v @ params["wv"].to(x.dtype)
     g = F.silu(x_g @ params["wg"].to(x.dtype))
 
-    dlo = torch.tanh(x_w @ params["decay_lora_a"].to(x.dtype))
-    dec = params["decay_base"].float() + (
-        dlo @ params["decay_lora_b"].to(x.dtype)).float()
-    logw = -torch.exp(dec)                                   # log of decay
+    decay = ("decay_base", "decay_lora_a", "decay_lora_b")
+    if is_dtensor(x):
+        logw = rows_local(lambda xw, *w: _log_decay(dict(zip(decay, w)), xw),
+                          (x_w,), [params[n] for n in decay], 3)
+    else:
+        logw = _log_decay(params, x_w)                       # log of decay
     w = torch.exp(logw)                                      # (B,S,d) in (0,1), f32
 
     rh, kh, vh, wh = (t.reshape(B, S, h, m) for t in (r, k, v, w))
@@ -189,6 +207,11 @@ def time_mix(params, x, cfg: ModelConfig, *, cache=None, impl: str = "kernel"):
     elif impl == "chunked":
         y, s_final = wkv_chunked(rh, kh, vh, logw.reshape(B, S, h, m),
                                  params["time_first"], state0=state0)
+    elif state0 is not None and is_dtensor(state0):
+        # the serial step on each rank's heads (DTensor has no rule for its
+        # batched products over strided shards)
+        y, s_final = kops.wkv_dtensor(wkv_scan_xla, rh, kh, vh, wh,
+                                      params["time_first"], state0)
     else:
         y, s_final = wkv_scan_xla(rh, kh, vh, wh, params["time_first"], state0)
     y = y.reshape(B, S, d).to(x.dtype)

@@ -17,6 +17,7 @@ from repro_torch.common.types import MLLMConfig, resolve_device, torch_dtype
 from repro_torch.models import model as model_lib
 from repro_torch.models.layers import embed as embed_lib
 from repro_torch.models.model import FwdCtx
+from repro_torch.sharding.local import is_dtensor, rows_local
 
 
 def init(mcfg: MLLMConfig, seed: int = 0, device="cuda"):
@@ -67,7 +68,14 @@ def encode_media(params, mcfg: MLLMConfig, media_embeds, media_mask=None,
         # Inter-model Communicator: reshard encoder output from the encoder's
         # data-parallel layout to the LLM's (paper Fig. 6).
         h = communicator(h)
-    h = apply_connector(params["connector"], h, mcfg)
+    if is_dtensor(h):
+        # on each rank's rows, the (small) connector whole: DTensor's own
+        # rules would shard the rows over the axes its ZeRO shards use
+        names = sorted(params["connector"])
+        h = rows_local(lambda x, *w: apply_connector(dict(zip(names, w)), x, mcfg),
+                       (h,), [params["connector"][n] for n in names], 3)
+    else:
+        h = apply_connector(params["connector"], h, mcfg)
     if mcfg.tokens_per_item_out:
         t_in = h.shape[1]
         factor = max(1, t_in // mcfg.tokens_per_item_out)
@@ -89,6 +97,10 @@ def forward_train(params, mcfg: MLLMConfig, batch, ctx: FwdCtx | None = None,
     media = encode_media(params, mcfg, batch["media_embeds"],
                          batch.get("media_mask"), ctx=enc_ctx or ctx,
                          communicator=communicator)
+    if ctx.hidden_constrain is not None:
+        # rows over the LLM's batch axes (DTensor would otherwise keep the
+        # connector's FSDP-sharded output dim and move the activations)
+        media = ctx.hidden_constrain(media)
     llm_cfg = mcfg.llm
     compute_dtype = torch_dtype(llm_cfg.dtype)
     text_emb = embed_lib.encode(params["llm"]["embed"], batch["text_tokens"],
@@ -96,7 +108,7 @@ def forward_train(params, mcfg: MLLMConfig, batch, ctx: FwdCtx | None = None,
     x = torch.cat([media.to(compute_dtype), text_emb], dim=1)
     B, T_m = media.shape[0], media.shape[1]
     T_t = text_emb.shape[1]
-    positions = torch.arange(T_m + T_t, device=x.device)[None].expand(B, -1)
+    positions = model_lib.default_positions(x)
     seg = None
     if "media_mask" in batch and "text_mask" in batch:
         # media is segment 1; text is 1 where text_mask is set, else 0, so

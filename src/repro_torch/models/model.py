@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Callable, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -36,6 +36,7 @@ from repro_torch.common.types import (FFNKind, LayerKind, ModelConfig,
                                       resolve_device, torch_dtype)
 from repro_torch.models.layers import (attention, embed, ffn, mamba, moe,
                                        norms, rwkv6)
+from repro_torch.sharding.local import is_dtensor
 
 
 @dataclass
@@ -55,6 +56,14 @@ class FwdCtx:
     # (mesh, batch_axes, model_axes): this rank's share of the sharded Mamba
     # scan and, with moe_impl "ep", of the sharded MoE paths; None: unsharded
     shard_ctx: Any = None
+    # The reference's sharding hooks (``launch/dryrun.py`` makes them: each
+    # a DTensor redistribute, the counterpart of with_sharding_constraint);
+    # None leaves a path as it is.
+    moe_constrain: Optional[Callable] = None      # (E, C, d) dispatch buffers
+    logits_constrain: Optional[Callable] = None   # e.g. shard the vocab dim
+    block_constrain: Optional[Callable] = None    # f(layer params, layer index):
+                                                  # ZeRO-3 gather (bwd: reduce-scatter)
+    hidden_constrain: Optional[Callable] = None   # pin (B, S, d) at each block
 
 
 def _layer_init(gen, cfg: ModelConfig, kind: LayerKind, ffn_kind: FFNKind,
@@ -78,10 +87,26 @@ def _layer_init(gen, cfg: ModelConfig, kind: LayerKind, ffn_kind: FFNKind,
 
 
 def _layer_apply(lp, x, cfg: ModelConfig, kind: LayerKind, ffn_kind: FFNKind,
-                 ctx: FwdCtx, positions, segment_ids, cache=None):
+                 ctx: FwdCtx, positions, segment_ids, cache=None, index=None):
     """Returns (x, moe_out): moe_out is None for a layer without MoE, else
     (lb, drop_rate, imbalance), the two stats detached.  With the layer's
-    ``cache`` (decode) the layer writes it in place."""
+    ``cache`` (decode) the layer writes it in place.  ``index`` (the layer's
+    place in the stack) applies ``ctx``'s hidden constraint at the start of
+    each block of ``block_period`` layers and its block constraint to the
+    layer's params, inside the layer's checkpoint as the reference applies
+    them inside its checkpointed block: the backward gathers again.  The
+    hidden constraint also pins each sublayer's output before its residual
+    add (DTensor would otherwise carry a partial sum on into strided shards
+    that its matmul rules do not take; GSPMD needs no such pin)."""
+    pin = _keep
+    if index is not None:
+        if ctx.hidden_constrain is not None:
+            pin = ctx.hidden_constrain
+            if index % cfg.block_period == 0:
+                # anchor the activation layout every block (stops sharding drift)
+                x = pin(x)
+        if ctx.block_constrain is not None:
+            lp = ctx.block_constrain(lp, index)
     h = norms.rms_apply(lp["ln1"], x, cfg.norm_eps)
     if kind == LayerKind.ATTENTION:
         if cache is None:
@@ -103,19 +128,34 @@ def _layer_apply(lp, x, cfg: ModelConfig, kind: LayerKind, ffn_kind: FFNKind,
     else:
         r_cache = None if cache is None else cache["rwkv"]
         y = rwkv6.time_mix(lp["rwkv"], h, cfg, cache=r_cache, impl=ctx.ssm_impl)
-        x = x + (y if cache is None else y[0])
+        x = x + (pin(y) if cache is None else y[0])
         h2 = norms.rms_apply(lp["ln2"], x, cfg.norm_eps)
         y2 = rwkv6.channel_mix(lp["rwkv"], h2, cfg, cache=r_cache)
-        return x + (y2 if cache is None else y2[0]), None
-    x = x + y
+        return x + (pin(y2) if cache is None else y2[0]), None
+    x = x + pin(y)
     h2 = norms.rms_apply(lp["ln2"], x, cfg.norm_eps)
     if ffn_kind == FFNKind.MOE:
         y2, lb, st = moe.apply(lp["moe"], h2, cfg, impl=ctx.moe_impl,
                                capacity_factor=ctx.capacity_factor,
+                               constrain=ctx.moe_constrain,
                                chunk_tokens=ctx.moe_chunk_tokens,
                                shard_ctx=ctx.shard_ctx, with_stats=True)
-        return x + y2, (lb, st["drop_rate"].detach(), st["imbalance"].detach())
-    return x + ffn.apply(lp["ffn"], h2, cfg), None
+        return x + pin(y2), (lb, st["drop_rate"].detach(), st["imbalance"].detach())
+    return x + pin(ffn.apply(lp["ffn"], h2, cfg)), None
+
+
+def _keep(x):
+    return x
+
+
+def default_positions(x):
+    """(B, S) positions 0 .. S-1 for x (B, S, ...); for a DTensor, placed as
+    x's rows (not a global tensor on every rank)."""
+    B, S = x.shape[0], x.shape[1]
+    ar = torch.arange(S, device=x.device)
+    if is_dtensor(x):
+        return torch.zeros_like(x[:, :, 0], dtype=torch.int64) + ar
+    return ar[None].expand(B, S)
 
 
 def layer_fn(cfg: ModelConfig, ctx: FwdCtx | None = None):
@@ -194,7 +234,7 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
 
     B, S = x.shape[0], x.shape[1]
     if positions is None and ctx.mode != "decode":
-        positions = torch.arange(S, device=x.device)[None].expand(B, S)
+        positions = default_positions(x)
 
     remat = (ctx.mode == "train" and cfg.remat and ctx.remat
              and torch.is_grad_enabled())
@@ -204,10 +244,11 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
         cache = caches[i] if caches is not None else None
         if remat:
             x, mo = checkpoint(_layer_apply, lp, x, cfg, kind, fk, ctx,
-                               positions, segment_ids, cache, use_reentrant=False)
+                               positions, segment_ids, cache, i,
+                               use_reentrant=False)
         else:
             x, mo = _layer_apply(lp, x, cfg, kind, fk, ctx, positions,
-                                 segment_ids, cache)
+                                 segment_ids, cache, i)
         if mo is not None:
             # mean drop across MoE layers; worst-layer imbalance (the
             # straggler expert matmul)
@@ -234,6 +275,8 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
         logits = embed.unembed(params["unembed"], x)
     if cfg.logit_softcap:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+    if ctx.logits_constrain is not None:
+        logits = ctx.logits_constrain(logits)
     return logits, caches, aux
 
 

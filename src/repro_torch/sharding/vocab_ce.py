@@ -26,6 +26,7 @@ import torch
 from repro_torch.common.collectives import (axis_index, grad_sum_over,
                                             max_over, sum_over)
 from repro_torch.launch.mesh import axes_size
+from repro_torch.sharding.local import is_dtensor
 
 
 def make_vocab_parallel_ce(mesh, batch_axes: Tuple[str, ...],
@@ -48,6 +49,12 @@ def make_vocab_parallel_ce(mesh, batch_axes: Tuple[str, ...],
     vdim = 0 if tied else 1
 
     def ce(w, h, labels):
+        if is_dtensor(h):
+            return _ce_dtensor(local_ce, mesh, batch_axes, model_axes, vdim,
+                               w, h, labels)
+        return local_ce(w, h, labels)
+
+    def local_ce(w, h, labels):
         shard = axis_index(mesh, model_axes)
         if w.shape[vdim] == vocab:
             w = w.narrow(vdim, shard * v_local, v_local)
@@ -71,3 +78,18 @@ def make_vocab_parallel_ce(mesh, batch_axes: Tuple[str, ...],
         return loss_sum / torch.clamp(count, min=1.0)
 
     return ce
+
+
+def _ce_dtensor(ce, mesh, batch_axes, model_axes, vdim, w, h, labels):
+    """``ce`` on DTensors, inside ``local_map`` at the reference's specs: the
+    head's vocab over the model axes, rows of h and labels over the batch
+    axes; the loss replicated.  ``ce`` sums its own gradients (see the
+    module doc), so each comes back placed as its input."""
+    from torch.distributed.tensor import Replicate
+    from repro_torch.sharding.local import local_call, placements
+    from repro_torch.sharding.partition import P
+    m, b = tuple(model_axes) or None, tuple(batch_axes) or None
+    w_spec = P(m, None) if vdim == 0 else P(None, m)
+    pl = (placements(mesh, w_spec, w.shape), placements(mesh, P(b, None, None), h.shape),
+          placements(mesh, P(b, None), labels.shape))
+    return local_call(ce, mesh, (w, h, labels), pl, [Replicate()] * len(pl[0]))

@@ -2,8 +2,12 @@
 microbatches with fp32 gradient accumulation, then AdamW.
 
 The global batch arrives pre-partitioned into N_mb microbatches (leading
-axis); the step loops over them, accumulating fp32 gradients in the
-parameters' ``.grad`` (params are fp32), divides by N_mb and updates."""
+axis); the step loops over them, accumulating fp32 gradients, divides by
+N_mb and updates.  An fp32 parameter accumulates in its own ``.grad``; any
+other (bf16) parameter in an fp32 buffer of its own, to which each
+microbatch's gradient is added in fp32, as the reference's scan carry does.
+AdamW takes the fp32 gradients and casts each update back to its
+parameter's dtype."""
 from __future__ import annotations
 
 import dataclasses
@@ -98,20 +102,26 @@ def make_train_step(desc: MLLMConfig | ModelConfig, opt_cfg: AdamWConfig,
 
     def train_step(params, opt_state, batch, lr):
         leaves = tree_leaves(params)
-        if any(p.dtype != torch.float32 for p in leaves):
-            raise ValueError("fp32 gradient accumulation needs fp32 params")
         n_mb = next(iter(batch.values())).shape[0]
         for p in leaves:
             p.grad = None
+        # fp32 buffers of the parameters that are not fp32 (a DTensor's
+        # buffer takes its placements: each gradient is redistributed to them)
+        acc = {id(p): torch.zeros_like(p, dtype=torch.float32)
+               for p in leaves if p.dtype != torch.float32}
         loss_sum = drop_sum = imb_max = torch.zeros((), device=leaves[0].device)
         for i in range(n_mb):
             mb = {k: v[i] for k, v in batch.items()}
             loss, aux = loss_fn(params, mb)
             loss.backward()                     # accumulates into p.grad
+            for p in leaves:
+                if id(p) in acc:
+                    acc[id(p)].add_(_like(p.grad, acc[id(p)]))
+                    p.grad = None
             loss_sum = loss_sum + loss.detach()
             drop_sum = drop_sum + aux["moe_drop_rate"].detach()
             imb_max = torch.maximum(imb_max, aux["moe_imbalance"].detach())
-        grads = tree_map(lambda p: p.grad.div_(n_mb), params)
+        grads = tree_map(lambda p: acc.get(id(p), p.grad).div_(n_mb), params)
         new_params, new_opt = adamw_update(opt_cfg, params, grads, opt_state,
                                            lr=lr)
         for p in leaves:
@@ -122,6 +132,13 @@ def make_train_step(desc: MLLMConfig | ModelConfig, opt_cfg: AdamWConfig,
         return new_params, new_opt, metrics
 
     return train_step
+
+
+def _like(g, buf):
+    """``g`` in ``buf``'s dtype and, for a DTensor, its placements."""
+    if hasattr(buf, "placements") and tuple(g.placements) != tuple(buf.placements):
+        g = g.redistribute(buf.device_mesh, buf.placements)
+    return g.float()
 
 
 def as_tensors(batch: dict, device="cuda") -> dict:
