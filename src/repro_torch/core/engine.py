@@ -146,7 +146,11 @@ class DFLOPEngine:
         boundaries (`poll_fleet`) and recovers checkpoint-free — re-plan
         for the surviving roster, migrate live params via
         ``param_swapper`` (use ``mesh_factory=fleet.plan_mesh``), degrade
-        instead of crashing when either fails."""
+        instead of crashing when either fails.
+
+        ``trace``: record the controller's own trace, or the
+        `TraceRecorder` to record it into (``train_mllm --trace`` hands it
+        the process's recorder, ``common.trace.recorder()``)."""
         from repro_torch.runtime import (DriftDetector, OnlineCalibrator,
                                          RuntimeController, RuntimeMetrics,
                                          TraceRecorder)
@@ -164,7 +168,8 @@ class DFLOPEngine:
                                          max_staleness=max_staleness)
         return RuntimeController(
             self, sched, gbs,
-            trace=TraceRecorder(enabled=trace),
+            trace=(trace if isinstance(trace, TraceRecorder)
+                   else TraceRecorder(enabled=trace)),
             metrics=RuntimeMetrics(),
             calibration=OnlineCalibrator() if calibrate else None,
             drift=drift if drift is not None else DriftDetector(),

@@ -16,6 +16,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
+from repro_torch.common import trace
 from repro_torch.core.optimizer.objective import corrected_item_durations
 from repro_torch.core.optimizer.space import ParallelismPlan
 from repro_torch.core.profiling.model_profiler import PerfModel
@@ -135,7 +136,17 @@ class OnlineMicrobatchScheduler:
                                         corrector=self.calibration)
 
     # ------------------------------------------------------------------ #
-    def schedule(self, items: Sequence[DataItem]) -> ScheduleOutput:
+    def schedule(self, items: Sequence[DataItem],
+                 batch: Optional[int] = None) -> ScheduleOutput:
+        """``batch``: the global batch's index, for its ``sched.schedule``
+        span (else the calling thread's ``trace.set_batch``)."""
+        with trace.span("sched.schedule", cat="scheduler", batch=batch,
+                        items=len(items)) as sp:
+            out = self._schedule(items)
+            sp.set(buckets=len(out.groups), solver=out.solver, elapsed_s=out.elapsed_s)
+        return out
+
+    def _schedule(self, items: Sequence[DataItem]) -> ScheduleOutput:
         t0 = time.monotonic()
         plan = self.plan                 # capture once: hot-swap safe
         e_dur, l_dur = self.item_durations(items, plan)
@@ -173,12 +184,12 @@ class OnlineMicrobatchScheduler:
 
     # ------------------------------------------------------------------ #
     # Asynchronous operation: schedule batch t+1 while step t runs.
-    def submit(self, items: Sequence[DataItem]) -> None:
+    def submit(self, items: Sequence[DataItem], batch: Optional[int] = None) -> None:
         if self._pending is not None:
             raise RuntimeError(
                 "submit() called with a schedule still pending; "
                 "collect() the previous batch first")
-        self._pending = self._pool.submit(self.schedule, list(items))
+        self._pending = self._pool.submit(self.schedule, list(items), batch)
 
     def collect(self) -> Optional[ScheduleOutput]:
         if self._pending is None:

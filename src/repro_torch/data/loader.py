@@ -31,6 +31,7 @@ from typing import Iterable, Iterator, Optional, Sequence
 
 import numpy as np
 
+from repro_torch.common import trace
 from repro_torch.core.scheduler.online import OnlineMicrobatchScheduler, ScheduleOutput
 from repro_torch.data.items import DataItem
 from repro_torch.data.packing import pack_items
@@ -80,13 +81,19 @@ class ScheduledLoader:
         self.total_truncated: int = 0
 
     # ------------------------------------------------------------------ #
-    def _schedule(self, items) -> ScheduleOutput:
+    def _schedule(self, items, batch: int) -> ScheduleOutput:
         if self.random_baseline:
             return self.scheduler.schedule_random(
                 items, seed=int(self._seed_rng.integers(1 << 31)))
-        return self.scheduler.schedule(items)
+        return self.scheduler.schedule(items, batch=batch)
 
     def _build(self, items: Sequence[DataItem], out: ScheduleOutput) -> dict:
+        with trace.span("loader.pack", cat="loader", items=len(items)) as sp:
+            batch = self._pack(items, out)
+            sp.set(truncated=self.last_truncated)
+        return batch
+
+    def _pack(self, items: Sequence[DataItem], out: ScheduleOutput) -> dict:
         n_mb = self.scheduler.plan.n_mb
         dp = self.scheduler.plan.llm.dp
         m = n_mb * dp
@@ -188,10 +195,13 @@ class ScheduledLoader:
         yield from self.composer.drain()
 
     def __iter__(self) -> Iterator[dict]:
+        """Packed batches; the caller's spans from here until the next batch
+        carry this batch's index (``trace.set_batch``)."""
         gen = self._item_batches()
         if not self.prefetch:
-            for items in gen:
-                out = self._schedule(items)
+            for t, items in enumerate(gen):
+                trace.set_batch(t)
+                out = self._schedule(items, t)
                 self.last_schedule = out
                 yield self._build(items, out)
             return
@@ -200,21 +210,24 @@ class ScheduledLoader:
             items = next(gen)
         except StopIteration:
             return
+        t = 0
         if self.random_baseline:
-            pending_items, pending_out = items, self._schedule(items)
+            pending_items, pending_out = items, self._schedule(items, t)
         else:
-            self.scheduler.submit(items)
+            self.scheduler.submit(items, batch=t)
             pending_items, pending_out = items, None
         while True:
+            trace.set_batch(t)
             if pending_out is None:
-                pending_out = self.scheduler.collect()
+                with trace.span("loader.collect", cat="loader"):
+                    pending_out = self.scheduler.collect()
             items_next = next(gen, None)
             next_out = None
             if items_next is not None:
                 if self.random_baseline:
-                    next_out = self._schedule(items_next)
+                    next_out = self._schedule(items_next, t + 1)
                 else:
-                    self.scheduler.submit(items_next)
+                    self.scheduler.submit(items_next, batch=t + 1)
             out, cur_items = pending_out, pending_items
             pending_items = items_next
             pending_out = next_out
@@ -222,3 +235,4 @@ class ScheduledLoader:
             yield self._build(cur_items, out)
             if pending_items is None:
                 return
+            t += 1

@@ -73,7 +73,6 @@ class RuntimeMetrics:
         self.reshard_s = RollingStat(window)
         self.compose_elapsed_s = RollingStat(window)
         self.compose_pred_gain = RollingStat(window)
-        self.compose_window_fill = RollingStat(window)
         self.truncated_tokens = RollingStat(window)
         self.stage_util: Dict[int, RollingStat] = {}
         self.pred_error: Dict[str, RollingStat] = {}
@@ -174,7 +173,6 @@ class RuntimeMetrics:
         avoid a core import)."""
         self.compose_elapsed_s.add(stats.elapsed_s)
         self.compose_pred_gain.add(stats.pred_gain)
-        self.compose_window_fill.add(stats.window_fill)
         self.n_composed += 1
         self.n_forced_items += stats.n_forced
 

@@ -16,6 +16,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch.common import trace
 from repro_torch.common.pytree import tree_leaves, tree_map
 from repro_torch.common.types import MLLMConfig, ModelConfig, resolve_device
 from repro_torch.models import mllm as mllm_lib
@@ -101,6 +102,10 @@ def make_train_step(desc: MLLMConfig | ModelConfig, opt_cfg: AdamWConfig,
                            enc_ctx=enc_ctx, with_aux=True)
 
     def train_step(params, opt_state, batch, lr):
+        with trace.span("step.train", cat="step"):
+            return _step(params, opt_state, batch, lr)
+
+    def _step(params, opt_state, batch, lr):
         leaves = tree_leaves(params)
         n_mb = next(iter(batch.values())).shape[0]
         for p in leaves:
@@ -112,20 +117,23 @@ def make_train_step(desc: MLLMConfig | ModelConfig, opt_cfg: AdamWConfig,
         loss_sum = drop_sum = imb_max = torch.zeros((), device=leaves[0].device)
         for i in range(n_mb):
             mb = {k: v[i] for k, v in batch.items()}
-            loss, aux = loss_fn(params, mb)
-            loss.backward()                     # accumulates into p.grad
+            with trace.span("step.forward", cat="step", device=True, microbatch=i):
+                loss, aux = loss_fn(params, mb)
+            with trace.span("step.backward", cat="step", device=True, microbatch=i):
+                loss.backward()                     # accumulates into p.grad
+                for p in leaves:
+                    if id(p) in acc:
+                        acc[id(p)].add_(_like(p.grad, acc[id(p)]))
+                        p.grad = None
+                loss_sum = loss_sum + loss.detach()
+                drop_sum = drop_sum + aux["moe_drop_rate"].detach()
+                imb_max = torch.maximum(imb_max, aux["moe_imbalance"].detach())
+        with trace.span("step.optimizer", cat="step", device=True):
+            grads = tree_map(lambda p: acc.get(id(p), p.grad).div_(n_mb), params)
+            new_params, new_opt = adamw_update(opt_cfg, params, grads, opt_state,
+                                               lr=lr)
             for p in leaves:
-                if id(p) in acc:
-                    acc[id(p)].add_(_like(p.grad, acc[id(p)]))
-                    p.grad = None
-            loss_sum = loss_sum + loss.detach()
-            drop_sum = drop_sum + aux["moe_drop_rate"].detach()
-            imb_max = torch.maximum(imb_max, aux["moe_imbalance"].detach())
-        grads = tree_map(lambda p: acc.get(id(p), p.grad).div_(n_mb), params)
-        new_params, new_opt = adamw_update(opt_cfg, params, grads, opt_state,
-                                           lr=lr)
-        for p in leaves:
-            p.grad = None
+                p.grad = None
         # NaN-preserving aggregates (no-MoE models report NaN, never 0.0)
         metrics = {"loss": loss_sum / n_mb, "moe_drop_rate": drop_sum / n_mb,
                    "moe_imbalance": imb_max}
@@ -146,8 +154,9 @@ def as_tensors(batch: dict, device="cuda") -> dict:
     leaves as fp32, integer leaves as int32."""
     dev = resolve_device(device)
     out = {}
-    for k, v in batch.items():
-        v = np.asarray(v)
-        dtype = torch.float32 if v.dtype.kind == "f" else torch.int32
-        out[k] = torch.as_tensor(v).to(device=dev, dtype=dtype)
+    with trace.span("step.h2d", cat="step"):
+        for k, v in batch.items():
+            v = np.asarray(v)
+            dtype = torch.float32 if v.dtype.kind == "f" else torch.int32
+            out[k] = torch.as_tensor(v).to(device=dev, dtype=dtype)
     return out

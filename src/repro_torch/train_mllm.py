@@ -6,14 +6,19 @@ multimodal data, comparing the Online Microbatch Scheduler against random
 Scheduling runs through the ``repro_torch.runtime`` control loop: every
 step's wall time (host clock, ending in a device synchronize) feeds back into
 calibration + drift detection, and ``--trace`` exports a Chrome trace (load
-in https://ui.perfetto.dev) of the run.  ``--replan`` additionally lets the
-controller re-plan in the background and hot-swap θ* when the data
-distribution drifts — and the swap is *physical*: the live (params, opt)
-state goes through a ``repro_torch.launch.reshard.ParamSwapper``, so an
-adopted plan re-lays-out the training state on the plan's mesh (clamped onto
-the ranks of the process group; one rank, one card, when the run is alone)
-and the reshard lands in the trace and metrics.  ``--shift-at K`` switches
-the data mixture single-image → video at step K to force a mid-run drift.
+in https://ui.perfetto.dev) of the run: the controller's spans and counters
+and the program's own (``common.trace``: the scheduler's search, the step's
+upload, forward, backward and optimizer, with their device times on a lane
+of their own), in the process's recorder.  With it, each step's idle device
+time (its wall time less its device spans) feeds the bubble fraction.
+``--replan`` additionally lets the controller re-plan in the background and
+hot-swap θ* when the data distribution drifts — and the swap is *physical*:
+the live (params, opt) state goes through a
+``repro_torch.launch.reshard.ParamSwapper``, so an adopted plan re-lays-out
+the training state on the plan's mesh (clamped onto the ranks of the process
+group; one rank, one card, when the run is alone) and the reshard lands in
+the trace and metrics.  ``--shift-at K`` switches the data mixture
+single-image → video at step K to force a mid-run drift.
 
 ``--hosts N`` runs the loop *elastically*: the process group's ranks split
 into N hosts owned by a ``repro_torch.launch.fleet.FleetManager``, each
@@ -69,7 +74,7 @@ from repro_torch.launch.fleet import FaultInjector, FleetManager
 from repro_torch.launch.reshard import ParamSwapper, Placed, clamped_plan_mesh
 from repro_torch.models import mllm as mllm_lib
 from repro_torch.models.model import FwdCtx
-from repro_torch.runtime import DriftDetector
+from repro_torch.runtime import DriftDetector, trace
 from repro_torch.train import checkpoint
 from repro_torch.train.optim import AdamWConfig, adamw_init, cosine_lr
 from repro_torch.train.step import as_tensors, make_train_step
@@ -313,7 +318,8 @@ def run(args, params=None, *, swapper_cls=ParamSwapper) -> dict:
     ``trained``, the peak device GiB (None on the CPU) and the loop's wall
     seconds."""
     dev = _device(args.device)
-    with _process_group(args, dev) as (rank, world):
+    with _process_group(args, dev) as (rank, world), \
+            trace.recording(rank == 0 and bool(args.trace)):
         return _train(args, params, dev, rank, world, swapper_cls)
 
 
@@ -372,7 +378,8 @@ def _train(args, params, dev, rank, world, swapper_cls) -> dict:
                           auto_replan=args.replan, drift=drift,
                           param_swapper=swapper if world == 1 else _Lead(swapper),
                           compose_window=args.compose_window,
-                          max_staleness=args.max_staleness or None, fleet=fleet)
+                          max_staleness=args.max_staleness or None, fleet=fleet,
+                          trace=trace.recorder() if args.trace else True)
         if fleet is not None:
             hsrc = HostShardedSource(lambda: current["ds"].sample(GBS), GBS,
                                      fleet=fleet, keep_committed=False)
@@ -389,6 +396,7 @@ def _train(args, params, dev, rank, world, swapper_cls) -> dict:
     try:
         for k in range(args.steps):
             active_ds = post_ds if (post_ds and k >= args.shift_at) else ds
+            trace.set_batch(k)
             if injector is not None:
                 injector.on_step(k)      # roster mutates before this step draws
             if lead:
@@ -437,7 +445,11 @@ def _train(args, params, dev, rank, world, swapper_cls) -> dict:
             if world > 1:
                 loss = _agreed_loss(k, loss)
             if lead:
-                ctl.observe_step(out, seconds)
+                # traced: the step's idle device time is its wall time less
+                # its device spans (none on the CPU: not measured, 0)
+                dev_ms = trace.recorder().device_ms(batch=k) if args.trace else None
+                idle = max(seconds - dev_ms / 1e3, 0.0) if dev_ms is not None else 0.0
+                ctl.observe_step(out, seconds, idle_s=idle)
                 if m is not None:
                     # NaN (no MoE layers) is skipped, not recorded
                     ctl.metrics.record_moe(float(m["moe_drop_rate"]),
