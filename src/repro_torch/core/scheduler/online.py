@@ -5,12 +5,16 @@ under the active plan θ*, partition the N items into m = N_mb · L_dp buckets
 with the hybrid exact-then-LPT solver, and hand the index groups to the data
 loader.  Runs asynchronously on host CPU — batch t+1 is scheduled while step
 t computes (§3.4.2: "the scheduler operates asynchronously to eliminate
-scheduling overhead").
+scheduling overhead").  The asynchronous path's branch-and-bound runs in the
+scheduler's own child process (``search_worker``), so it never holds this
+process's interpreter lock while the step packs and launches; ``schedule()``
+searches in the caller's thread.
 """
 from __future__ import annotations
 
 import concurrent.futures
 import time
+import weakref
 from dataclasses import dataclass, field
 from typing import List, Optional, Sequence
 
@@ -23,6 +27,7 @@ from repro_torch.core.profiling.model_profiler import PerfModel
 from repro_torch.core.scheduler.adaptive import AdaptiveCorrection
 from repro_torch.core.scheduler.ilp import solve_makespan_bnb
 from repro_torch.core.scheduler.lpt import cmax, lower_bound, lpt_schedule
+from repro_torch.core.scheduler.search_worker import SearchWorker
 from repro_torch.data.items import DataItem
 
 
@@ -94,6 +99,7 @@ class OnlineMicrobatchScheduler:
         self.roster_chips: Optional[int] = None
         self._pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
         self._pending: Optional[concurrent.futures.Future] = None
+        self._worker: Optional[SearchWorker] = None   # started by the first submit()
 
     # ------------------------------------------------------------------ #
     @property
@@ -138,31 +144,38 @@ class OnlineMicrobatchScheduler:
     # ------------------------------------------------------------------ #
     def schedule(self, items: Sequence[DataItem],
                  batch: Optional[int] = None) -> ScheduleOutput:
-        """``batch``: the global batch's index, for its ``sched.schedule``
-        span (else the calling thread's ``trace.set_batch``)."""
+        """Search in the caller's thread.  ``batch``: the global batch's
+        index, for its ``sched.schedule`` span (else the calling thread's
+        ``trace.set_batch``)."""
+        return self._schedule(items, batch, None)
+
+    def _schedule(self, items: Sequence[DataItem], batch: Optional[int],
+                  worker: Optional[SearchWorker]) -> ScheduleOutput:
+        """The search in ``worker`` (the asynchronous path) or, without one,
+        in this thread, inside its ``sched.schedule`` span."""
         with trace.span("sched.schedule", cat="scheduler", batch=batch,
                         items=len(items)) as sp:
-            out = self._schedule(items)
-            sp.set(buckets=len(out.groups), solver=out.solver, elapsed_s=out.elapsed_s)
+            t0 = time.monotonic()
+            plan = self.plan                 # capture once: hot-swap safe
+            e_dur, l_dur = self.item_durations(items, plan)
+            m = plan.n_buckets
+            se, sl = _solver_durations(plan, e_dur, l_dur)
+            if worker is None:
+                res = solve_makespan_bnb(se, sl, m, time_limit_s=self.ilp_time_limit_s)
+            else:
+                res = worker.solve(se, sl, m, self.ilp_time_limit_s)
+            if res.timed_out:
+                # hybrid contract: on timeout the incumbent is the LPT solution
+                # possibly improved by partial search — keep the better one.
+                solver = "ilp-timeout"
+            else:
+                solver = "ilp"
+            lb = lower_bound(se, sl, m)
+            out = ScheduleOutput(res.groups, res.cmax, lb, solver,
+                                 time.monotonic() - t0, e_dur, l_dur, plan)
+            sp.set(buckets=len(out.groups), solver=out.solver, elapsed_s=out.elapsed_s,
+                   where="thread" if worker is None else "worker", nodes=res.nodes)
         return out
-
-    def _schedule(self, items: Sequence[DataItem]) -> ScheduleOutput:
-        t0 = time.monotonic()
-        plan = self.plan                 # capture once: hot-swap safe
-        e_dur, l_dur = self.item_durations(items, plan)
-        m = plan.n_buckets
-        se, sl = _solver_durations(plan, e_dur, l_dur)
-        res = solve_makespan_bnb(se, sl, m,
-                                 time_limit_s=self.ilp_time_limit_s)
-        if res.timed_out:
-            # hybrid contract: on timeout the incumbent is the LPT solution
-            # possibly improved by partial search — keep the better one.
-            solver = "ilp-timeout"
-        else:
-            solver = "ilp"
-        lb = lower_bound(se, sl, m)
-        return ScheduleOutput(res.groups, res.cmax, lb, solver,
-                              time.monotonic() - t0, e_dur, l_dur, plan)
 
     def schedule_random(self, items: Sequence[DataItem],
                         seed: int = 0) -> ScheduleOutput:
@@ -185,18 +198,24 @@ class OnlineMicrobatchScheduler:
     # ------------------------------------------------------------------ #
     # Asynchronous operation: schedule batch t+1 while step t runs.
     def submit(self, items: Sequence[DataItem], batch: Optional[int] = None) -> None:
+        """Schedule ``items`` on the pool's thread, which hands the search
+        to the scheduler's worker process and waits for it off the
+        interpreter lock; the worker starts here once, and ends when the
+        scheduler is collected or the interpreter exits."""
         if self._pending is not None:
             raise RuntimeError(
                 "submit() called with a schedule still pending; "
                 "collect() the previous batch first")
-        self._pending = self._pool.submit(self.schedule, list(items), batch)
+        if self._worker is None:
+            self._worker = SearchWorker()
+            weakref.finalize(self, self._worker.close)
+        self._pending = self._pool.submit(self._schedule, list(items), batch, self._worker)
 
     def collect(self) -> Optional[ScheduleOutput]:
         if self._pending is None:
             return None
-        out = self._pending.result()
-        self._pending = None
-        return out
+        pending, self._pending = self._pending, None
+        return pending.result()          # a search's error, or its worker's, raises here
 
     @property
     def has_pending(self) -> bool:

@@ -4,7 +4,9 @@ recorder over a tiny ``ScheduledLoader`` and ``make_train_step`` on the CPU.
 - Off (the default, no profiler), a span records nothing, opens no
   ``record_function`` and makes no device event.
 - On, each span carries the global batch it works on and its parent, on
-  the caller's thread and on the scheduler's worker thread.
+  the caller's thread and on the scheduler's worker thread; the worker
+  thread's ``sched.schedule`` spans say the search ran in the scheduler's
+  worker process (``where``) and how many nodes it visited (``nodes``).
 - Under a CPU ``torch.profiler``, the caller's spans are mirrored into the
   profile as ``repro_torch.<span>``; after the one offset (the median gap
   between a span's two copies, as the benchmark's ``idle_in_search_ms``
@@ -134,6 +136,9 @@ def test_on_gives_each_span_its_batch_and_parent(off_after):
     assert all(s["thread"] != "MainThread" and s["parent"] is None for s in sch)
     assert all(s["args"]["items"] == GBS and s["args"]["buckets"] == N_MB
                and s["args"]["solver"] in ("ilp", "ilp-timeout") for s in sch)
+    # searched in the scheduler's worker process, its nodes counted
+    assert all(s["args"]["where"] == "worker" and type(s["args"]["nodes"]) is int
+               and s["args"]["nodes"] >= 1 for s in sch)
     assert all(not s["mirrored"] and s["device_ms"] is None for s in rec.spans())
     assert all(s["args"]["items"] == GBS and s["args"]["truncated"] >= 0
                for s in by["loader.pack"])
