@@ -34,7 +34,9 @@ Phases, each reported on its own lines:
                 against the plain versions' at fp32's tolerance, in bf16 too;
                 K4, K5, K6 and K7 run twice on each scan case must give bitwise
                 equal outputs; K4's timing line also gives its bound with the
-                h_init bytes and its exponential floor;
+                h_init bytes and its exponential floor; then K4/K5 with segment
+                restart words (``phase_restarts``: Jamba2-3B's shape and edge
+                cases against the plain versions, timed with and without);
   4. timing   — every kernel at its path shapes with CUDA events, beside its
                 plain version, the card's bound and the PyTorch yardstick
                 where one exists (SDPA for K1–K3; none computes a scan);
@@ -53,7 +55,9 @@ Phases, each reported on its own lines:
                 launch on the tensor cores at the SigLIP shape (D 72) and the
                 Qwen2.5 shape (D 128, G 7); one more step under ``torch.profiler``
                 as in phase 5; then its path check as in phase 6;
-  8. decoders — 3 AdamW steps each of RWKV6-7B and Jamba-v0.1 (dense FFNs)
+  8. decoders — 3 AdamW steps each of RWKV6-7B and Jamba-v0.1 (dense FFNs;
+                its Mamba layers restarting at each packed segment, so every
+                K4/K5 launch must carry restart words)
                 at full width, depth cut to 8 layers, on rows packed by
                 ``pack_items`` from the mixed data; launch counts of K4–K7 and
                 of K1–K3 at Jamba's attention shape per step (K1–K3 on the
@@ -349,6 +353,132 @@ def cuda_ms(fn, iters, warmup=2):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / iters
+
+
+# K4/K5 with segment restarts (phase 3): the tolerances of their fp32 sums
+# and of K4's y written in bf16
+RESTART_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (1e-2, 4e-3)}
+# Jamba2-3B's scan (jamba2-3b.mixed: B 1, S 8192, d_inner 5120): a packed
+# row of the mixed traffic (items of 2,104, 3,400 and 2,600 tokens, then
+# padding); restarts at step 1, at a K5 group's and a K4 tile's first step
+# and inside them, at the last step; a restart on every step
+JAMBA2_SCAN = dict(S=8192, di=5120)
+JAMBA2_ROWS = ([2104, 5504, 8104], [1, 16, 17, 64, 100, 4096, 4097, 8191],
+               list(range(1, 8192)))
+
+
+def phase_restarts(dev):
+    """Phase 3, K4 and K5 with segment restarts (the words the main path's
+    Mamba layers pass where a configuration restarts at each packed
+    segment): each against its plain version (``fwd_plain`` /
+    ``bwd_plain`` with the same words) at RESTART_TOL, twice for bitwise
+    equality, and all-zero words bitwise equal to none; K5 is fed this
+    build's K4 states.  Cases: Jamba2-3B's shape (``JAMBA2_ROWS``, bf16) and
+    edge cases (restarts at a group's and a tile's first step and inside
+    them, at step 1 and the last step, on every step; chunks 1, 3, 16 and
+    40; S 1 and 97; B 3; d_inner 36 and 300; fp32 and bf16).  Then K4 and
+    K5 timed at Jamba2-3B's shape on its packed row, without and with the
+    words, in turns.  Runs alone too: ``python3 -c 'import chip_smoke, torch;
+    chip_smoke.phase_restarts(torch.device("cuda"))'``."""
+    if os.path.join(HERE, "src") not in sys.path:
+        sys.path.insert(0, os.path.join(HERE, "src"))
+    import torch
+    from repro_torch.kernels import mamba_scan
+    from repro_torch.kernels.blocking import MAMBA_PAD_DT, pad_axis
+
+    def case(B, S, di, dtype, starts_at, seed=0):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        r = lambda *s: torch.randn(*s, generator=g, device=dev)   # noqa: E731
+        u, Bt, Ct, dy = (r(B, S, n).to(dtype) for n in (di, 16, 16, di))
+        dt = torch.nn.functional.softplus(r(B, S, di) - 3.0).to(dtype)
+        A = -torch.exp(torch.log(torch.arange(1, 17, device=dev, dtype=torch.float32))
+                       .expand(di, 16) + 0.1 * r(di, 16)).contiguous()
+        mask = torch.zeros((B, S), dtype=torch.bool, device=dev)
+        for b, ts in enumerate(starts_at):
+            mask[b, [t for t in ts if 0 < t < S]] = True
+        return (u, dt, Bt, Ct, A, r(di), dy), mamba_scan.start_words(mask)
+
+    def within(errs, dtype):
+        tol_max, tol_rel = RESTART_TOL[dtype]
+        return all(e <= tol_max * m and rel <= tol_rel for e, m, rel in errs.values())
+
+    def fmt(errs):
+        return ", ".join(f"{k} {e / max(m, 1e-30):.2e}/{rel:.2e}"
+                         for k, (e, m, rel) in errs.items())
+
+    def check(name, ins, words, chunk):
+        u, dt, Bt, Ct, A, D, dy = ins
+        S = u.shape[1]
+        c = min(chunk, S)
+        pad = lambda t, v=0.0: pad_axis(t, -(-S // c) * c, axis=1, value=v)   # noqa: E731
+        y_p, i_p = mamba_scan.fwd_plain(pad(u), pad(dt, MAMBA_PAD_DT), pad(Bt), pad(Ct), A, D,
+                                        c, words)
+        runs = [mamba_scan.scan_fwd(u, dt, Bt, Ct, A, D, c, words) for _ in range(2)]
+        zero = torch.zeros_like(words)
+        errs_y = rel_errors(("y",), runs[0][:1], (y_p[:, :S],))
+        errs_h = rel_errors(("h_init",), runs[0][1:], (i_p,))
+        same = all(torch.equal(a, b) for a, b in zip(*runs))
+        none = all(torch.equal(a, b) for a, b in zip(
+            mamba_scan.scan_fwd(u, dt, Bt, Ct, A, D, c, zero),
+            mamba_scan.scan_fwd(u, dt, Bt, Ct, A, D, c)))
+        ok = within(errs_y, str(u.dtype).split(".")[-1]) and within(errs_h, "float32") \
+            and same and none
+        line = (f"[compare] restarts {name}: K4 chunk {c} {fmt({**errs_y, **errs_h})}; "
+                f"twice {'bitwise' if same else 'DIFFER'}; zero words = none: "
+                f"{'bitwise' if none else 'DIFFER'}")
+        if c <= mamba_scan.K5_CHUNK:
+            h_init = runs[0][1]
+            p = mamba_scan.bwd_plain(pad(u), pad(dt, MAMBA_PAD_DT), pad(Bt), pad(Ct), A, D,
+                                     h_init, pad(dy), c, words)
+            p = [x[:, :S] for x in p[:2]] + [x[:, :, :S] for x in p[2:4]] + list(p[4:])
+            k5 = [mamba_scan.scan_bwd(u, dt, Bt, Ct, A, D, h_init, dy, c, words)
+                  for _ in range(2)]
+            errs5 = rel_errors(("du", "ddt", "dB", "dC", "dA", "dD"), k5[0], p)
+            same5 = all(torch.equal(a, b) for a, b in zip(*k5))
+            none5 = all(torch.equal(a, b) for a, b in zip(
+                mamba_scan.scan_bwd(u, dt, Bt, Ct, A, D, h_init, dy, c, zero),
+                mamba_scan.scan_bwd(u, dt, Bt, Ct, A, D, h_init, dy, c)))
+            ok = ok and within(errs5, "float32") and same5 and none5
+            line += (f" | K5 {fmt(errs5)}; twice {'bitwise' if same5 else 'DIFFER'}; "
+                     f"zero words = none: {'bitwise' if none5 else 'DIFFER'}")
+        log(line + (" OK" if ok else " FAIL"))
+        if not ok:
+            raise SystemExit(f"K4/K5 with restarts disagree with their plain versions: {name}")
+
+    S, di = JAMBA2_SCAN["S"], JAMBA2_SCAN["di"]
+    cases = {"jamba2-3b/bf16": ((len(JAMBA2_ROWS), S, di, torch.bfloat16, JAMBA2_ROWS),
+                                mamba_scan.CHUNK)}
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        cases.update({
+            f"edges_S97_B3_di300/{tag}": ((3, 97, 300, dtype, [[1, 16, 17, 32, 64, 96],
+                                                               [15, 31, 63, 65],
+                                                               list(range(1, 97))]), 16),
+            f"S97_chunk3/{tag}": ((2, 97, 256, dtype, [[3, 4, 50, 64, 90], [2]]), 3),
+            f"S129_chunk1/{tag}": ((1, 129, 128, dtype, [[1, 63, 64, 65, 128]]), 1),
+            f"S1_di36/{tag}": ((1, 1, 36, dtype, [[]]), 16),
+            f"S200_chunk40/{tag}": ((2, 200, 128, dtype, [[40, 41, 120], [199]]), 40),
+        })
+    for name, ((B, S_, di_, dtype, starts), chunk) in cases.items():
+        ins, words = case(B, S_, di_, dtype, starts)
+        check(name, ins, words, chunk)
+        del ins, words
+        torch.cuda.empty_cache()
+    # timing on the packed row
+    ins, words = case(1, S, di, torch.bfloat16, JAMBA2_ROWS[:1])
+    u, dt, Bt, Ct, A, D, dy = ins
+    c = mamba_scan.CHUNK
+    _, h_init = mamba_scan.scan_fwd(u, dt, Bt, Ct, A, D, c)
+    turns = []
+    for w in (None, words, None, words):
+        turns.append((w is not None,
+                      cuda_ms(lambda: mamba_scan.scan_fwd(u, dt, Bt, Ct, A, D, c, w), 20),
+                      cuda_ms(lambda: mamba_scan.scan_bwd(u, dt, Bt, Ct, A, D, h_init, dy, c,
+                                                          w), 20)))
+    log("[timing] jamba2-3b scan (B 1, S 8192, d_inner 5120, bf16), ms a launch (K4, K5), "
+        "in turns: " + ", ".join(f"{'with' if r else 'without'} restarts {a:.4f} {b:.4f}"
+                                 for r, a, b in turns))
+    del ins, words, u, dt, Bt, Ct, A, D, dy, h_init
+    torch.cuda.empty_cache()
 
 
 def phase_serve(dev, timing, launches, max_err):
@@ -1994,8 +2124,9 @@ def main() -> int:
 
     # the decoders of phases 7-8 and their packed rows (numpy, seeded)
     rwkv_cfg = dataclasses.replace(rwkv6_7b.CFG, n_layers=DEC_LAYERS)
+    # restarting at each packed segment, as the benchmark's Jamba trains
     jamba_cfg = dataclasses.replace(jamba_v0_1_52b.CFG, n_layers=DEC_LAYERS,
-                                    ffn_pattern=("dense",))
+                                    ffn_pattern=("dense",), ssm_segment_reset=True)
 
     def decoder_batch(cfg, seed, n_mb=DEC_MB, S=DEC_S, rows=DEC_ROWS):
         """n_mb x rows rows of S tokens: items of the mixed data drawn
@@ -2411,6 +2542,7 @@ def main() -> int:
             max_err[(bwd, shape)] = max(e for e, _, _ in list(errs.values())[n_out:])
         del c
     torch.cuda.empty_cache()
+    phase_restarts(dev)
 
     # 4. timing ------------------------------------------------------------ #
     F = torch.nn.functional
@@ -2910,6 +3042,11 @@ def main() -> int:
                                      if kk == COUNTER[kn]
                                      and route == pfa.route_of(torch.bfloat16))
         check_routes(f"decoders {name}")
+        if cfg.ssm_segment_reset:
+            rst = (mamba_scan.LAUNCHES["fwd_restarts"], mamba_scan.LAUNCHES["bwd_restarts"])
+            log(f"[decoders] {name}: K4/K5 launches with restart words {rst[0]}/{rst[1]}")
+            if rst != (counts[("K4", name)], counts[("K5", name)]) or not rst[0]:
+                raise SystemExit(f"{name}: K4/K5 launched without restart words: {rst}")
         log(f"[decoders] {name}: launches over 3 steps " + ", ".join(
             f"{kn} {n} ({n / 3:g}/step)" for (kn, _), n in counts.items()) +
             f"; max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")

@@ -31,7 +31,11 @@ any thread, onto the profile's timeline.  A span opened with
 stream; the pairs are resolved into device milliseconds when the spans are
 read or exported, never inside the step.  Off, a span costs a query of the
 profiler's state and a flag test: no record, no event, no
-``record_function``, nothing that waits for the device.
+``record_function``, nothing that waits for the device.  ``counter()``
+records a value under the same switch (``TraceRecorder.counters()`` reads
+them); ``set_microbatch()`` names the microbatch the step works on, for
+spans that run outside the step's own spans (a layer's recompute in the
+backward, on autograd's thread).
 """
 from __future__ import annotations
 
@@ -186,6 +190,15 @@ class TraceRecorder:
                         "device_ms": device.get(sid), "args": args})
         return out
 
+    def counters(self) -> List[dict]:
+        """Every counter, oldest first: ``name``, ``ts_us``, ``value``,
+        ``tid`` and the rest of its arguments (``batch``, where the
+        program's ``counter()`` recorded it)."""
+        with self._lock:
+            events = [e for e in self._events if e[0] == "C"]
+        return [{"name": name, "ts_us": ts, "tid": tid, **(args or {})}
+                for _, name, _, ts, _, tid, args in events]
+
     def device_ms(self, batch: Optional[int] = None) -> Optional[float]:
         """Device milliseconds in the device spans (of ``batch``, if given);
         None where there are none."""
@@ -260,6 +273,7 @@ class TraceRecorder:
 _RECORDER = TraceRecorder(enabled=False, process_name="repro_torch", clock=time.time)
 _local = threading.local()        # per thread: the span stack and the batch index
 _profiled: Optional[int] = None   # the thread whose profiler switched recording on
+_microbatch: Optional[int] = None  # the microbatch the step works on (any thread)
 
 
 def recorder() -> TraceRecorder:
@@ -286,6 +300,35 @@ def recording(on: bool = True):
 def set_batch(index: Optional[int]) -> None:
     """The global batch that the calling thread's spans work on from now."""
     _local.batch = index
+
+
+def set_microbatch(index: Optional[int]) -> None:
+    """The microbatch the train step works on from now, for every thread
+    (a checkpointed layer recomputes on autograd's thread)."""
+    global _microbatch
+    _microbatch = index
+
+
+def microbatch() -> Optional[int]:
+    return _microbatch
+
+
+def active() -> bool:
+    """Whether the program's spans and counters record now: the recorder is
+    on, or a profiler records on this thread or on the step's."""
+    return _RECORDER.enabled or _profiled is not None or _profiler_enabled()
+
+
+def counter(name: str, value: float, *, cat: str, batch: Optional[int] = None) -> None:
+    """A program counter: ``value`` under ``name`` at this moment, with the
+    global batch (``batch``, else the thread's ``set_batch``), recorded
+    when ``active()``."""
+    if not active():
+        return
+    if batch is None:
+        batch = getattr(_local, "batch", None)
+    _RECORDER._push(("C", name, cat, _RECORDER.now_us(), 0.0, _RECORDER.lane(),
+                     {"value": float(value), "batch": batch}))
 
 
 class _Off:

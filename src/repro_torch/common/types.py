@@ -32,6 +32,11 @@ class FFNKind(str, enum.Enum):
     MOE = "moe"
 
 
+# Fields the reference's ModelConfig does not have: at their defaults (off)
+# the port computes what the reference does.
+PORT_ONLY_FIELDS = ("ssm_segment_reset", "ssm_inner_norms")
+
+
 @dataclass(frozen=True)
 class ModelConfig:
     """One transformer stack (decoder LLM, encoder, or SSM/hybrid)."""
@@ -58,6 +63,11 @@ class ModelConfig:
     ssm_d_state: int = 16            # Mamba
     ssm_d_conv: int = 4
     ssm_expand: int = 2
+    # Mamba on packed rows: restart the conv and the state at every segment
+    # start (the reference runs across segments); Jamba's RMSNorms on dt's
+    # low rank, B and C after x_proj (HF ``modeling_jamba``)
+    ssm_segment_reset: bool = False
+    ssm_inner_norms: bool = False
     rwkv_head_dim: int = 64          # RWKV6
     input_embed_dim: int = 0         # >0: consume precomputed embeddings via in_proj
     has_lm_head: bool = True
@@ -130,6 +140,8 @@ class ModelConfig:
                 total += di + di                          # A_log (di x N folded), D  (approx: di*N)
                 total += di * self.ssm_d_state            # A_log actual
                 total += di * d                           # out_proj
+                if self.ssm_inner_norms:                  # dt, B, C norm scales
+                    total += math.ceil(d / 16) + 2 * self.ssm_d_state
             elif kind == LayerKind.RWKV6:
                 h = d // self.rwkv_head_dim
                 total += 5 * d * d                        # r,k,v,g,o projections

@@ -37,8 +37,8 @@ SIGNATURES = {
         "pfa_bwd_dkv": [P] * 10 + [I] * 9 + [P],
     },
     "mamba_scan": {
-        "mamba_fwd": [P] * 8 + [I] * 5 + [P],
-        "mamba_bwd": [P] * 14 + [I] * 5 + [P],
+        "mamba_fwd": [P] * 9 + [I] * 5 + [P],
+        "mamba_bwd": [P] * 15 + [I] * 5 + [P],
     },
     "rwkv6_scan": {
         "wkv6_fwd": [P] * 8 + [I] * 6 + [P],

@@ -15,6 +15,15 @@
 // chunk) is masked here: steps past S load dt = u = 0 (the identity step of
 // kernels/blocking.py) and are not written; channels past di compute zeros.
 //
+// Segment restarts (packed rows): `rst`, when not null, holds (B, ceil(S / 32)) 32-bit
+// words, bit t % 32 of word t / 32 of a row set where step t starts a segment.  Such a step
+// drops the state it inherits: h_t = (dt_t u_t) B_t.  K4 applies it in the walk (a group of
+// HS steps with no start runs the plain steps; the bits are uniform over a block, which is
+// one batch row) and saves h_init before it, as it saves every chunk's pre-state; K5
+// replays the same restart and stops the state's gradient there (the pre-state, and with it
+// the decay's and A's share of the step, are zero).  No restart leaves both kernels as
+// they were.
+//
 // K4 (fwd_kernel<T, N, VEC>).  What bounds it on the H100, at Jamba's shape (B 2, S 4096,
 // di 8192, N 16, bf16): its own bytes (u and dt read, y written; B_t, C_t, A, D are small)
 // are 0.404 GB, 0.1205 ms at 3.35 TB/s; with the fp32 chunk-initial states it writes for
@@ -330,13 +339,15 @@ __device__ __forceinline__ void k4_store_bc(unsigned char* stage,
 // lane's partial of y; then the HS steps' sums over the channel's L lanes, lane q taking
 // steps q + L c into the warp's y tile.  The state is saved to `si` before the step
 // `next_si` names (-1 once no chunk of the S steps is left); with EACH a chunk may start
-// at any of the HS steps, else only at the first.
-template <typename T, int N, bool EACH>
+// at any of the HS steps, else only at the first.  With RST, bit s of `starts` restarts
+// the state at step tt + s (after the save: h_init is the step's pre-state).
+template <typename T, int N, bool EACH, bool RST>
 __device__ __forceinline__ void k4_steps(float (&h)[K4<T, N>::SPL],
                                          const float (&a)[K4<T, N>::SPL], float ddq,
                                          const unsigned char* stage, T* y_w, int tb, int tt,
                                          int S, int chunk, int& next_si, float*& si,
-                                         size_t si_step, bool live, int cl, int clw, int q) {
+                                         size_t si_step, bool live, int cl, int clw, int q,
+                                         unsigned starts) {
   using G = K4<T, N>;
   constexpr int L = G::L, SPL = G::SPL, HS = G::HS, TS = G::TS;
   const T* u_s = reinterpret_cast<const T*>(stage);
@@ -351,6 +362,12 @@ __device__ __forceinline__ void k4_steps(float (&h)[K4<T, N>::SPL],
       if (live) st_f<SPL>(si, h);
       si += si_step;
       next_si = next_si < S - chunk ? next_si + chunk : -1;
+    }
+    if constexpr (RST) {
+      if ((starts >> s) & 1u) {
+#pragma unroll
+        for (int j = 0; j < SPL; ++j) h[j] = 0.f;
+      }
     }
     const float ut = to_f(u_s[t * CB + cl]), dtt = to_f(dt_s[t * CB + cl]);
     const float dtl = dtt * LOG2E, x = dtt * ut;
@@ -401,7 +418,8 @@ template <typename T, int N, bool VEC>
 __global__ void __launch_bounds__(K4<T, N>::NT, 1) fwd_kernel(
     const T* __restrict__ u, const T* __restrict__ dt, const T* __restrict__ Bm,
     const T* __restrict__ Cm, const float* __restrict__ A, const float* __restrict__ D,
-    T* __restrict__ y, float* __restrict__ h_init, int S, int di, int chunk, int n_chunks) {
+    T* __restrict__ y, float* __restrict__ h_init, const unsigned* __restrict__ rst, int S,
+    int di, int chunk, int n_chunks) {
   using G = K4<T, N>;
   constexpr int L = G::L, SPL = G::SPL, TS = G::TS, NS = G::NS, CPW = G::CPW;
   extern __shared__ float4 smem4[];
@@ -439,6 +457,8 @@ __global__ void __launch_bounds__(K4<T, N>::NT, 1) fwd_kernel(
   const size_t si_step = (size_t)di * N;
   int next_si = 0;                        // the step that starts the next chunk
   const bool each = chunk % G::HS != 0;
+  const int rw = (S + 31) / 32;           // restart words a row
+  const unsigned* rrow = rst == nullptr ? nullptr : rst + (size_t)b * rw;
 
   unsigned bc[G::BCW];
   for (int n = 0; n < NS - 1 && n < n_tiles; ++n) {
@@ -460,16 +480,31 @@ __global__ void __launch_bounds__(K4<T, N>::NT, 1) fwd_kernel(
       k4_load_bc<T, N, VEC>(bc, Bm, Cm, row + f0, fsteps);
     }
     const int t0 = n * TS, steps = min(TS, S - t0);
+    // the tile's restart bits (TS is 32 or 64 steps, t0 a multiple of 32)
+    unsigned long long tbits = 0;
+    if (rrow != nullptr) {
+      tbits = rrow[t0 / 32];
+      if (TS > 32 && t0 / 32 + 1 < rw) tbits |= (unsigned long long)rrow[t0 / 32 + 1] << 32;
+    }
     const unsigned char* stage = stages + s * G::STAGE;
     mbar_wait(full + s, (n / NS) & 1);   // tile n is in stage s
-    if (each) {
-      for (int tb = 0; tb < steps; tb += G::HS)
-        k4_steps<T, N, true>(h, a, ddq, stage, y_w, tb, t0 + tb, S, chunk, next_si, si,
-                             si_step, live, cl, clw, q);
-    } else {
-      for (int tb = 0; tb < steps; tb += G::HS)
-        k4_steps<T, N, false>(h, a, ddq, stage, y_w, tb, t0 + tb, S, chunk, next_si, si,
-                              si_step, live, cl, clw, q);
+    for (int tb = 0; tb < steps; tb += G::HS) {
+      const unsigned starts = (unsigned)(tbits >> tb) & ((1u << G::HS) - 1);
+      if (each) {
+        if (starts)
+          k4_steps<T, N, true, true>(h, a, ddq, stage, y_w, tb, t0 + tb, S, chunk, next_si,
+                                     si, si_step, live, cl, clw, q, starts);
+        else
+          k4_steps<T, N, true, false>(h, a, ddq, stage, y_w, tb, t0 + tb, S, chunk, next_si,
+                                      si, si_step, live, cl, clw, q, 0u);
+      } else {
+        if (starts)
+          k4_steps<T, N, false, true>(h, a, ddq, stage, y_w, tb, t0 + tb, S, chunk, next_si,
+                                      si, si_step, live, cl, clw, q, starts);
+        else
+          k4_steps<T, N, false, false>(h, a, ddq, stage, y_w, tb, t0 + tb, S, chunk,
+                                       next_si, si, si_step, live, cl, clw, q, 0u);
+      }
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(empty + s);   // this warp is done with stage s
@@ -553,15 +588,26 @@ __device__ __forceinline__ void k5_fill(unsigned char* buf, const T* u, const T*
   }
 }
 
-// K5.  Grid (channel blocks, B), K5_THREADS threads: thread = (channel, quarter).
-template <typename T, int N, bool VEC>
+// The restart bits of steps [t0, t0 + steps) of a row's words (steps <= 16), bit t for
+// step t0 + t.
+__device__ __forceinline__ unsigned chunk_starts(const unsigned* rrow, int rw, int t0,
+                                                 int steps) {
+  const int w = t0 / 32, off = t0 % 32;
+  unsigned long long bits = rrow[w];
+  if (w + 1 < rw) bits |= (unsigned long long)rrow[w + 1] << 32;
+  return (unsigned)(bits >> off) & ((1u << steps) - 1);
+}
+
+// K5.  Grid (channel blocks, B), K5_THREADS threads: thread = (channel, quarter).  RST:
+// `rst` holds restart bits (a launch without them runs the code without the selects).
+template <typename T, int N, bool VEC, bool RST>
 __global__ void __launch_bounds__(K5_THREADS, 1) bwd_kernel(
     const T* __restrict__ u, const T* __restrict__ dt, const T* __restrict__ Bm,
     const T* __restrict__ Cm, const float* __restrict__ A, const float* __restrict__ D,
     const float* __restrict__ h_init, const T* __restrict__ dy, float* __restrict__ du,
     float* __restrict__ ddt, float* __restrict__ dB_p, float* __restrict__ dC_p,
-    float* __restrict__ dA_p, float* __restrict__ dD_p, int Bsz, int S, int di, int chunk,
-    int n_chunks) {
+    float* __restrict__ dA_p, float* __restrict__ dD_p, const unsigned* __restrict__ rst,
+    int Bsz, int S, int di, int chunk, int n_chunks) {
   static_assert(N == 4 * K5_LANES, "a lane holds 4 of the channel's N = 16 states");
   constexpr size_t BUF = k5_buf_bytes<T, N>();
   extern __shared__ float smem[];
@@ -593,6 +639,9 @@ __global__ void __launch_bounds__(K5_THREADS, 1) bwd_kernel(
       k5_fill<T, N, VEC>(bufs + ((it + 1) & 1) * BUF, u, dt, dy, Bm, Cm, h_init, b, ic - 1,
                          S, di, c0, chunk, n_chunks);
     const int t0 = ic * chunk, steps = min(chunk, S - t0);
+    // steps that restart the state (uniform over the block)
+    const unsigned starts = RST ? chunk_starts(rst + (size_t)b * ((S + 31) / 32),
+                                               (S + 31) / 32, t0, steps) : 0u;
     // quarter 0 writes the channel's ddt, quarter 1 its du, from this chunk's first row
     float* const drow = (n0 == 0 ? ddt : du) + ((size_t)b * S + t0) * di + c;
     const float* h_s = reinterpret_cast<const float*>(cur);
@@ -602,19 +651,20 @@ __global__ void __launch_bounds__(K5_THREADS, 1) bwd_kernel(
     const T* b_s = dy_s + K5_CH * CB;
     const T* c_s = b_s + K5_CH * N;
 
-    // replay: hist[t] = the pre-state of step t0 + t
+    // replay: hist[t] = the pre-state of step t0 + t (zero where the step restarts)
     float h[4], hist[K5_CH][4];
     load4(h_s + cl * N + n0, h);
 #pragma unroll
     for (int t = 0; t < K5_CH; ++t) {
       const float dtt = to_f(dt_s[t * CB + cl]), dtl = dtt * LOG2E;
       const float x = dtt * to_f(u_s[t * CB + cl]);
+      const bool cut = RST && ((starts >> t) & 1u);
       float bn[4];
       load4(b_s + t * N + n0, bn);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        hist[t][j] = h[j];
-        h[j] = fmaf(h[j], ex2(dtl * a[j]), x * bn[j]);
+        hist[t][j] = cut ? 0.f : h[j];
+        h[j] = fmaf(hist[t][j], ex2(dtl * a[j]), x * bn[j]);
       }
     }
     // adjoint, steps in reverse
@@ -623,6 +673,7 @@ __global__ void __launch_bounds__(K5_THREADS, 1) bwd_kernel(
       const float ut = to_f(u_s[t * CB + cl]), dtt = to_f(dt_s[t * CB + cl]);
       const float dyt = to_f(dy_s[t * CB + cl]);
       const float x = dtt * ut, dtl = dtt * LOG2E;
+      const bool cut = RST && ((starts >> t) & 1u);   // no gradient to the pre-state
       float bn[4], cn[4], v[8];
       load4(b_s + t * N + n0, bn);
       load4(c_s + t * N + n0, cn);
@@ -638,7 +689,7 @@ __global__ void __launch_bounds__(K5_THREADS, 1) bwd_kernel(
         dx = fmaf(gt, bn[j], dx);
         gha = fmaf(gh, a[j], gha);
         da[j] = fmaf(gh, dtt, da[j]);
-        g[j] = gt * dec;
+        g[j] = cut ? 0.f : gt * dec;
       }
       dx += __shfl_xor_sync(FULL, dx, 1);
       gha += __shfl_xor_sync(FULL, gha, 1);
@@ -675,8 +726,8 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 
 template <typename T, int N, bool VEC>
 cudaError_t launch_fwd_as(const void* u, const void* dt, const void* Bm, const void* Cm,
-                          const void* A, const void* D, void* y, void* h_init, int Bsz, int S,
-                          int di, int chunk, cudaStream_t stream) {
+                          const void* A, const void* D, void* y, void* h_init, const void* rst,
+                          int Bsz, int S, int di, int chunk, cudaStream_t stream) {
   constexpr size_t smem = K4<T, N>::BYTES;
   cudaError_t e = allow_smem(fwd_kernel<T, N, VEC>, smem);
   if (e != cudaSuccess) return e;
@@ -684,63 +735,69 @@ cudaError_t launch_fwd_as(const void* u, const void* dt, const void* Bm, const v
   fwd_kernel<T, N, VEC><<<grid, K4<T, N>::NT, smem, stream>>>(
       static_cast<const T*>(u), static_cast<const T*>(dt), static_cast<const T*>(Bm),
       static_cast<const T*>(Cm), static_cast<const float*>(A), static_cast<const float*>(D),
-      static_cast<T*>(y), static_cast<float*>(h_init), S, di, chunk, (S + chunk - 1) / chunk);
+      static_cast<T*>(y), static_cast<float*>(h_init), static_cast<const unsigned*>(rst), S, di,
+      chunk, (S + chunk - 1) / chunk);
   return cudaGetLastError();
 }
 
 // K4 takes any chunk >= 1 (cudaErrorInvalidValue otherwise); its 16-byte copies and stores
-// need di * sizeof(T) a multiple of 16 and 16-byte aligned pointers.
+// need di * sizeof(T) a multiple of 16 and 16-byte aligned pointers.  `rst` may be null.
 template <typename T, int N>
 cudaError_t launch_fwd(const void* u, const void* dt, const void* Bm, const void* Cm,
-                       const void* A, const void* D, void* y, void* h_init, int Bsz, int S,
-                       int di, int chunk, cudaStream_t stream) {
+                       const void* A, const void* D, void* y, void* h_init, const void* rst,
+                       int Bsz, int S, int di, int chunk, cudaStream_t stream) {
   if (chunk < 1) return cudaErrorInvalidValue;
   const bool vec = (di * sizeof(T)) % 16 == 0 &&
                    (((size_t)u | (size_t)dt | (size_t)Bm | (size_t)Cm | (size_t)y) % 16) == 0;
   return (vec ? launch_fwd_as<T, N, true> : launch_fwd_as<T, N, false>)(
-      u, dt, Bm, Cm, A, D, y, h_init, Bsz, S, di, chunk, stream);
+      u, dt, Bm, Cm, A, D, y, h_init, rst, Bsz, S, di, chunk, stream);
 }
 
-template <typename T, int N, bool VEC>
+template <typename T, int N, bool VEC, bool RST>
 cudaError_t launch_bwd_as(const void* u, const void* dt, const void* Bm, const void* Cm,
                           const void* A, const void* D, const void* h_init, const void* dy,
                           void* du, void* ddt, void* dB_p, void* dC_p, void* dA_p,
-                          void* dD_p, int Bsz, int S, int di, int chunk,
+                          void* dD_p, const void* rst, int Bsz, int S, int di, int chunk,
                           cudaStream_t stream) {
   constexpr size_t smem = k5_smem_bytes<T, N>();
-  cudaError_t e = allow_smem(bwd_kernel<T, N, VEC>, smem);
+  cudaError_t e = allow_smem(bwd_kernel<T, N, VEC, RST>, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((di + CB - 1) / CB, Bsz);
-  bwd_kernel<T, N, VEC><<<grid, K5_THREADS, smem, stream>>>(
+  bwd_kernel<T, N, VEC, RST><<<grid, K5_THREADS, smem, stream>>>(
       static_cast<const T*>(u), static_cast<const T*>(dt), static_cast<const T*>(Bm),
       static_cast<const T*>(Cm), static_cast<const float*>(A), static_cast<const float*>(D),
       static_cast<const float*>(h_init), static_cast<const T*>(dy), static_cast<float*>(du),
       static_cast<float*>(ddt), static_cast<float*>(dB_p), static_cast<float*>(dC_p),
-      static_cast<float*>(dA_p), static_cast<float*>(dD_p), Bsz, S, di, chunk,
-      (S + chunk - 1) / chunk);
+      static_cast<float*>(dA_p), static_cast<float*>(dD_p), static_cast<const unsigned*>(rst),
+      Bsz, S, di, chunk, (S + chunk - 1) / chunk);
   return cudaGetLastError();
 }
 
 // K5 takes a chunk of 1..K5_CH steps (cudaErrorInvalidValue otherwise); its 16-byte
-// copies need di * sizeof(T) a multiple of 16 and 16-byte aligned pointers.
+// copies need di * sizeof(T) a multiple of 16 and 16-byte aligned pointers.  `rst` may be
+// null (the kernel without restarts).
 template <typename T, int N>
 cudaError_t launch_bwd(const void* u, const void* dt, const void* Bm, const void* Cm,
                        const void* A, const void* D, const void* h_init, const void* dy,
                        void* du, void* ddt, void* dB_p, void* dC_p, void* dA_p, void* dD_p,
-                       int Bsz, int S, int di, int chunk, cudaStream_t stream) {
+                       const void* rst, int Bsz, int S, int di, int chunk,
+                       cudaStream_t stream) {
   if (chunk < 1 || chunk > K5_CH) return cudaErrorInvalidValue;
   const bool vec = (di * sizeof(T)) % 16 == 0 &&
                    (((size_t)u | (size_t)dt | (size_t)dy | (size_t)Bm | (size_t)Cm |
                      (size_t)h_init) % 16) == 0;
-  return (vec ? launch_bwd_as<T, N, true> : launch_bwd_as<T, N, false>)(
-      u, dt, Bm, Cm, A, D, h_init, dy, du, ddt, dB_p, dC_p, dA_p, dD_p, Bsz, S, di, chunk,
-      stream);
+  const auto launch = rst != nullptr
+      ? (vec ? launch_bwd_as<T, N, true, true> : launch_bwd_as<T, N, false, true>)
+      : (vec ? launch_bwd_as<T, N, true, false> : launch_bwd_as<T, N, false, false>);
+  return launch(u, dt, Bm, Cm, A, D, h_init, dy, du, ddt, dB_p, dC_p, dA_p, dD_p, rst, Bsz, S,
+                di, chunk, stream);
 }
 
 }  // namespace
 
 // Plain C interface (loaded with ctypes).  Pointers are device pointers, `stream` is a
-// cudaStream_t; `bf16` selects bf16 (1) or fp32 (0) u/dt/B_t/C_t/y/dy; N is 16.
+// cudaStream_t; `bf16` selects bf16 (1) or fp32 (0) u/dt/B_t/C_t/y/dy; N is 16; `rst`, the
+// segment restart bits (B, ceil(S / 32)) of 32-bit words, or null for none.
 // Each function returns the cudaError_t of its launch (0 on success).
 #define MAMBA_DISPATCH(CALL)                                                \
   if (bf16) return (int)CALL(__nv_bfloat16, 16);                            \
@@ -749,10 +806,10 @@ cudaError_t launch_bwd(const void* u, const void* dt, const void* Bm, const void
 extern "C" {
 
 int mamba_fwd(const void* u, const void* dt, const void* Bm, const void* Cm, const void* A,
-              const void* D, void* y, void* h_init, int B, int S, int di, int chunk, int bf16,
-              void* stream) {
+              const void* D, void* y, void* h_init, const void* rst, int B, int S, int di,
+              int chunk, int bf16, void* stream) {
 #define CALL(T, NN) \
-  launch_fwd<T, NN>(u, dt, Bm, Cm, A, D, y, h_init, B, S, di, chunk, \
+  launch_fwd<T, NN>(u, dt, Bm, Cm, A, D, y, h_init, rst, B, S, di, chunk, \
                     static_cast<cudaStream_t>(stream))
   MAMBA_DISPATCH(CALL)
 #undef CALL
@@ -760,10 +817,10 @@ int mamba_fwd(const void* u, const void* dt, const void* Bm, const void* Cm, con
 
 int mamba_bwd(const void* u, const void* dt, const void* Bm, const void* Cm, const void* A,
               const void* D, const void* h_init, const void* dy, void* du, void* ddt,
-              void* dB_p, void* dC_p, void* dA_p, void* dD_p, int B, int S, int di, int chunk,
-              int bf16, void* stream) {
-#define CALL(T, NN)                                                                    \
-  launch_bwd<T, NN>(u, dt, Bm, Cm, A, D, h_init, dy, du, ddt, dB_p, dC_p, dA_p, dD_p, \
+              void* dB_p, void* dC_p, void* dA_p, void* dD_p, const void* rst, int B, int S,
+              int di, int chunk, int bf16, void* stream) {
+#define CALL(T, NN)                                                                         \
+  launch_bwd<T, NN>(u, dt, Bm, Cm, A, D, h_init, dy, du, ddt, dB_p, dC_p, dA_p, dD_p, rst, \
                     B, S, di, chunk, static_cast<cudaStream_t>(stream))
   MAMBA_DISPATCH(CALL)
 #undef CALL

@@ -24,6 +24,14 @@ same chunked algorithm as sequential torch loops.  The entry point
 ``mamba_scan_bsd`` routes once: the kernels for a CUDA tensor, the plain
 versions for a CPU tensor.
 
+Packed rows: ``starts``, the segment restart bits of each row
+(``start_words``: (B, ceil(S / 32)) int32 words, bit t % 32 of word
+t / 32 set where step t starts a segment), makes such a step drop the state
+it inherits, ``h_t = (dt_t u_t) ⊗ B_t``, in both kernels and both plain
+versions; the backward then stops the state's gradient there, and the
+step's decay takes no gradient.  ``None`` runs across the segments, as the
+reference does.
+
 The chunk is internal (no output depends on it): ``CHUNK`` steps.  K4 takes
 any chunk (it walks the sequence in tiles of ``K4_TILE`` steps in bf16, half
 that in fp32, and saves the state where a countdown names a chunk's start).
@@ -35,6 +43,7 @@ the CUDA kernels load that value past the end.
 from __future__ import annotations
 
 from collections import Counter
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -48,7 +57,8 @@ K4_TILE = 64         # the steps K4 copies in at a time in bf16, half in fp32 (K
 C_BLK = 128          # channels per CUDA block (CB in the .cu)
 D_STATE = 16         # the state width the CUDA kernels take
 
-# Kernel launches since the last reset: kernel ("fwd" K4, "bwd" K5) -> count.
+# Kernel launches since the last reset: kernel ("fwd" K4, "bwd" K5) -> count;
+# "fwd_restarts", "bwd_restarts": those of them that took restart words.
 LAUNCHES: Counter = Counter()
 
 
@@ -56,35 +66,63 @@ def reset_launches() -> None:
     LAUNCHES.clear()
 
 
+def start_words(starts):
+    """The restart bits of packed rows: a (B, S) bool mask of the steps that
+    start a segment -> (B, ceil(S / 32)) int32 words, bit t % 32 of word
+    t / 32 set where step t does."""
+    Bsz, S = starts.shape
+    start = pad_axis(starts.long(), -(-S // 32) * 32, axis=1)
+    shifts = torch.arange(32, device=starts.device, dtype=torch.int64)
+    words = (start.view(Bsz, -1, 32) << shifts).sum(-1)
+    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(torch.int32).contiguous()
+
+
+def start_mask(starts, S):
+    """The words of ``start_words`` back as a (B, S) bool mask (steps
+    past the words' end: no start)."""
+    bits = (starts.long()[..., None] >> torch.arange(32, device=starts.device)) & 1
+    bits = bits.reshape(starts.shape[0], -1)[:, :S].bool()
+    return pad_axis(bits, S, axis=1, value=False)
+
+
 # --------------------------------------------------------------------------- #
 # Plain versions (torch; S a multiple of chunk)
 # --------------------------------------------------------------------------- #
-def fwd_plain(u, dt, B_t, C_t, A, D, chunk):
-    """Plain K4: (y in u's dtype, h_init f32 (B, n_chunks, di, N))."""
+def fwd_plain(u, dt, B_t, C_t, A, D, chunk, starts=None):
+    """Plain K4: (y in u's dtype, h_init f32 (B, n_chunks, di, N)); with
+    ``starts``, the state restarts where a segment starts (h_init holds each
+    chunk's pre-state, before the restart)."""
     Bsz, S, di = u.shape
     N = A.shape[1]
     uf, dtf, bf, cf = (t.float() for t in (u, dt, B_t, C_t))
     Af, Df = A.float(), D.float()
+    keep = None if starts is None else (~start_mask(starts, S)).float()
     h = torch.zeros((Bsz, di, N), dtype=torch.float32, device=u.device)
     ys, inits = [], []
     for t in range(S):
         if t % chunk == 0:
             inits.append(h)
+        if keep is not None:
+            h = h * keep[:, t, None, None]
         decay = torch.exp(dtf[:, t, :, None] * Af)
         h = h * decay + (dtf[:, t] * uf[:, t])[..., None] * bf[:, t, None, :]
         ys.append(torch.sum(h * cf[:, t, None, :], -1) + Df * uf[:, t])
     return torch.stack(ys, 1).to(u.dtype), torch.stack(inits, 1)
 
 
-def bwd_plain(u, dt, B_t, C_t, A, D, h_init, dy, chunk):
+def bwd_plain(u, dt, B_t, C_t, A, D, h_init, dy, chunk, starts=None):
     """Plain K5: du, ddt f32 (B, S, di); dB, dC partials f32
     (n_cblk, B, S, N) over blocks of C_BLK channels; dA partial f32
-    (B, di, N); dD partial f32 (B, di)."""
+    (B, di, N); dD partial f32 (B, di).  With ``starts``, a step that
+    starts a segment has a zero pre-state and passes no gradient back to
+    it."""
     Bsz, S, di = u.shape
     N = A.shape[1]
     n_cblk = -(-di // C_BLK)
     uf, dtf, bf, cf, dyf = (t.float() for t in (u, dt, B_t, C_t, dy))
     Af, Df = A.float(), D.float()
+    keep = (torch.ones((Bsz, S), device=u.device) if starts is None
+            else (~start_mask(starts, S)).float())
     g = torch.zeros((Bsz, di, N), dtype=torch.float32, device=u.device)
     du, ddt = (torch.empty((Bsz, S, di), dtype=torch.float32, device=u.device)
                for _ in range(2))
@@ -101,6 +139,7 @@ def bwd_plain(u, dt, B_t, C_t, A, D, h_init, dy, chunk):
         t0 = ic * chunk
         hist, h = [], h_init[:, ic].float()
         for t in range(t0, t0 + chunk):                    # replay pre-states
+            h = h * keep[:, t, None, None]
             hist.append(h)
             h = (h * torch.exp(dtf[:, t, :, None] * Af)
                  + (dtf[:, t] * uf[:, t])[..., None] * bf[:, t, None, :])
@@ -120,14 +159,14 @@ def bwd_plain(u, dt, B_t, C_t, A, D, h_init, dy, chunk):
             du[:, t] = dx * dt_t + Df * dy_t
             dA = dA + gh * dt_t[..., None]
             dD = dD + dy_t * u_t
-            g = gt * decay
+            g = gt * decay * keep[:, t, None, None]
     return du, ddt, dB, dC, dA, dD
 
 
 # --------------------------------------------------------------------------- #
 # CUDA launches
 # --------------------------------------------------------------------------- #
-def _check(u, dt, B_t, C_t, A, D, chunk, extra=(), bwd=False):
+def _check(u, dt, B_t, C_t, A, D, chunk, extra=(), bwd=False, starts=None):
     """Raise on what the CUDA kernels do not take (``bwd``: K5's, else
     K4's)."""
     Bsz, S, di = u.shape
@@ -150,7 +189,10 @@ def _check(u, dt, B_t, C_t, A, D, chunk, extra=(), bwd=False):
                          f"{K5_CHUNK} (the replay history it holds in registers)")
     if Bsz > 65535:
         raise ValueError("batch exceeds the grid's y limit")
-    for t in (u, dt, B_t, C_t, A, D, *extra):
+    if starts is not None and (starts.dtype != torch.int32
+                               or starts.shape != (Bsz, -(-S // 32))):
+        raise ValueError("starts must be int32 (B, ceil(S / 32)) words (start_words)")
+    for t in (u, dt, B_t, C_t, A, D, *extra, *(() if starts is None else (starts,))):
         if t.device != u.device or not t.is_contiguous():
             raise ValueError("operands must be contiguous on u's CUDA device")
 
@@ -161,9 +203,13 @@ def _dims(u, chunk):
             torch.cuda.current_stream(u.device).cuda_stream)
 
 
-def scan_fwd(u, dt, B_t, C_t, A, D, chunk):
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def scan_fwd(u, dt, B_t, C_t, A, D, chunk, starts=None):
     """K4 → (y, h_init)."""
-    _check(u, dt, B_t, C_t, A, D, chunk)
+    _check(u, dt, B_t, C_t, A, D, chunk, starts=starts)
     Bsz, S, di = u.shape
     lib = build.load("mamba_scan")
     y = torch.empty_like(u)
@@ -171,16 +217,17 @@ def scan_fwd(u, dt, B_t, C_t, A, D, chunk):
                          device=u.device)
     build.call(lib.mamba_fwd, u.data_ptr(), dt.data_ptr(), B_t.data_ptr(),
                C_t.data_ptr(), A.data_ptr(), D.data_ptr(), y.data_ptr(),
-               h_init.data_ptr(), *_dims(u, chunk))
+               h_init.data_ptr(), _ptr(starts), *_dims(u, chunk))
     LAUNCHES["fwd"] += 1
+    LAUNCHES["fwd_restarts"] += starts is not None
     return y, h_init
 
 
-def scan_bwd(u, dt, B_t, C_t, A, D, h_init, dy, chunk):
+def scan_bwd(u, dt, B_t, C_t, A, D, h_init, dy, chunk, starts=None):
     """K5 → (du, ddt, dB partial, dC partial, dA partial, dD partial)."""
     Bsz, S, di = u.shape
     N = D_STATE
-    _check(u, dt, B_t, C_t, A, D, chunk, (h_init, dy), bwd=True)
+    _check(u, dt, B_t, C_t, A, D, chunk, (h_init, dy), bwd=True, starts=starts)
     if dy.shape != u.shape or dy.dtype != u.dtype:
         raise ValueError("dy must match u's shape and dtype")
     if h_init.shape != (Bsz, -(-S // chunk), di, N) or h_init.dtype != torch.float32:
@@ -194,8 +241,10 @@ def scan_bwd(u, dt, B_t, C_t, A, D, h_init, dy, chunk):
     build.call(lib.mamba_bwd, u.data_ptr(), dt.data_ptr(), B_t.data_ptr(),
                C_t.data_ptr(), A.data_ptr(), D.data_ptr(), h_init.data_ptr(),
                dy.data_ptr(), du.data_ptr(), ddt.data_ptr(), dB.data_ptr(),
-               dC.data_ptr(), dA.data_ptr(), dD.data_ptr(), *_dims(u, chunk))
+               dC.data_ptr(), dA.data_ptr(), dD.data_ptr(), _ptr(starts),
+               *_dims(u, chunk))
     LAUNCHES["bwd"] += 1
+    LAUNCHES["bwd_restarts"] += starts is not None
     return du, ddt, dB, dC, dA, dD
 
 
@@ -211,13 +260,14 @@ Tensor = torch.Tensor
 
 @torch.library.custom_op("repro_torch::mamba_fwd", mutates_args=())
 def mamba_fwd_op(u: Tensor, dt: Tensor, B_t: Tensor, C_t: Tensor, A: Tensor,
-                 D: Tensor, chunk: int, plain: bool) -> tuple[Tensor, Tensor]:
+                 D: Tensor, chunk: int, plain: bool,
+                 starts: Optional[Tensor] = None) -> tuple[Tensor, Tensor]:
     """K4 (or ``fwd_plain``) → (y, h_init)."""
-    return (fwd_plain if plain else scan_fwd)(u, dt, B_t, C_t, A, D, chunk)
+    return (fwd_plain if plain else scan_fwd)(u, dt, B_t, C_t, A, D, chunk, starts)
 
 
 @mamba_fwd_op.register_fake
-def _(u, dt, B_t, C_t, A, D, chunk, plain):
+def _(u, dt, B_t, C_t, A, D, chunk, plain, starts=None):
     Bsz, S, di = u.shape
     return torch.empty_like(u), u.new_empty(
         (Bsz, -(-S // chunk), di, A.shape[1]), dtype=torch.float32)
@@ -225,16 +275,16 @@ def _(u, dt, B_t, C_t, A, D, chunk, plain):
 
 @torch.library.custom_op("repro_torch::mamba_bwd", mutates_args=())
 def mamba_bwd_op(u: Tensor, dt: Tensor, B_t: Tensor, C_t: Tensor, A: Tensor,
-                 D: Tensor, h_init: Tensor, dy: Tensor, chunk: int,
-                 plain: bool) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor,
-                                       Tensor]:
+                 D: Tensor, h_init: Tensor, dy: Tensor, chunk: int, plain: bool,
+                 starts: Optional[Tensor] = None) -> tuple[Tensor, Tensor, Tensor,
+                                                           Tensor, Tensor, Tensor]:
     """K5 (or ``bwd_plain``) → (du, ddt, dB, dC, dA, dD partials)."""
     return (bwd_plain if plain else scan_bwd)(u, dt, B_t, C_t, A, D, h_init,
-                                              dy, chunk)
+                                              dy, chunk, starts)
 
 
 @mamba_bwd_op.register_fake
-def _(u, dt, B_t, C_t, A, D, h_init, dy, chunk, plain):
+def _(u, dt, B_t, C_t, A, D, h_init, dy, chunk, plain, starts=None):
     Bsz, S, di = u.shape
     N = A.shape[1]
     f32 = lambda *shape: u.new_empty(shape, dtype=torch.float32)   # noqa: E731
@@ -263,30 +313,34 @@ _register_flops()
 
 class _Scan(torch.autograd.Function):
     """K4 forward, K5 backward (the reference's ``custom_vjp``), through the
-    ops above.  ``plain`` selects the plain versions whatever the device."""
+    ops above.  ``plain`` selects the plain versions whatever the device;
+    ``starts`` (or None) the segment restarts."""
 
     @staticmethod
-    def forward(ctx, u, dt, B_t, C_t, A, D, chunk, plain):
+    def forward(ctx, u, dt, B_t, C_t, A, D, chunk, plain, starts):
         y, h_init = torch.ops.repro_torch.mamba_fwd(u, dt, B_t, C_t, A, D,
-                                                    chunk, plain)
-        ctx.save_for_backward(u, dt, B_t, C_t, A, D, h_init)
+                                                    chunk, plain, starts)
+        ctx.save_for_backward(u, dt, B_t, C_t, A, D, h_init, starts)
         ctx.chunk, ctx.plain = chunk, plain
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        u, dt, B_t, C_t, A, D, h_init = ctx.saved_tensors
+        u, dt, B_t, C_t, A, D, h_init, starts = ctx.saved_tensors
         du, ddt, dB, dC, dA, dD = torch.ops.repro_torch.mamba_bwd(
-            u, dt, B_t, C_t, A, D, h_init, dy.contiguous(), ctx.chunk, ctx.plain)
+            u, dt, B_t, C_t, A, D, h_init, dy.contiguous(), ctx.chunk, ctx.plain,
+            starts)
         return (du.to(u.dtype), ddt.to(dt.dtype), dB.sum(0).to(B_t.dtype),
                 dC.sum(0).to(C_t.dtype), dA.sum(0).to(A.dtype),
-                dD.sum(0).to(D.dtype), None, None)
+                dD.sum(0).to(D.dtype), None, None, None)
 
 
 def mamba_scan_bsd(u, dt, B_t, C_t, A, D, *, chunk: int = CHUNK,
-                   plain: bool = False):
-    """u, dt: (B, S, di); B_t, C_t: (B, S, N); A: (di, N); D: (di,).
-    Returns y: (B, S, di) in u's dtype.  Differentiable in every input.
+                   plain: bool = False, starts=None):
+    """u, dt: (B, S, di); B_t, C_t: (B, S, N); A: (di, N); D: (di,);
+    ``starts`` the rows' segment restart words (``start_words``) or
+    None.  Returns y: (B, S, di) in u's dtype.  Differentiable in every
+    input.
 
     The plain versions run on inputs padded to a chunk multiple (dt = 0 makes
     a padded step the identity); pad and slice stay outside the autograd
@@ -301,5 +355,5 @@ def mamba_scan_bsd(u, dt, B_t, C_t, A, D, *, chunk: int = CHUNK,
         dt = pad_axis(dt, S_p, axis=1, value=MAMBA_PAD_DT)
     else:
         c = min(chunk, S)
-    y = _Scan.apply(u, dt, B_t, C_t, A, D, c, plain)
+    y = _Scan.apply(u, dt, B_t, C_t, A, D, c, plain, starts)
     return y[:, :S]

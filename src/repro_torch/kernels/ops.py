@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.mamba_scan import mamba_scan_bsd
+from repro_torch.kernels.mamba_scan import mamba_scan_bsd, start_words
 from repro_torch.kernels.packed_flash_attention import packed_flash_attention_bkgsd
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan_bhsm
 from repro_torch.sharding.local import is_dtensor
@@ -50,12 +50,16 @@ def rwkv6_scan(r, k, v, w, u):
     return y.permute(0, 2, 1, 3), s
 
 
-def mamba_scan(u, dt, B_t, C_t, A, D):
-    """u, dt: (B, S, di); B_t, C_t: (B, S, N); A: (di, N); D: (di,).
-    Returns (y (B, S, di), None) — no final state, as in the reference.  A
-    and D go in as fp32, as the kernels take them (a bf16 parameter
-    converts exactly)."""
-    return mamba_scan_bsd(u, dt, B_t, C_t, A.float(), D.float()), None
+def mamba_scan(u, dt, B_t, C_t, A, D, starts=None, words=None):
+    """u, dt: (B, S, di); B_t, C_t: (B, S, N); A: (di, N); D: (di,);
+    ``starts`` (B, S) bool, the steps that start a segment (the state
+    restarts there), or None; ``words`` their ``start_words``, where the
+    caller has them.  Returns (y (B, S, di), None) — no final state, as in
+    the reference.  A and D go in as fp32, as the kernels take them (a bf16
+    parameter converts exactly)."""
+    if words is None and starts is not None:
+        words = start_words(starts)
+    return mamba_scan_bsd(u, dt, B_t, C_t, A.float(), D.float(), starts=words), None
 
 
 # --------------------------------------------------------------------------- #

@@ -23,12 +23,23 @@ Pallas path does.
 Decode carries (conv window, ssm state) in a cache and steps them in plain
 PyTorch, whatever ``impl`` says.
 
-The causal convolution and the scan run across packed segment boundaries,
-as in the reference (``segment_ids`` is not read).
+Packed rows.  By default the causal convolution and the scan run across
+packed segment boundaries, as in the reference (``segment_ids`` is not
+read).  With ``cfg.ssm_segment_reset`` the layer restarts at every segment
+start of ``segment_ids`` (a step whose id differs from the step before it;
+the padding, id 0, is a segment like any other): the convolution zeroes
+every tap that reaches into an earlier segment, and every scan (naive,
+chunked, the kernels) starts that step from a zero state, so a packed row
+gives each segment what it would give alone.  Decode is unchanged.
+
+``cfg.ssm_inner_norms`` adds Jamba's RMSNorms on dt's low rank, B_t and C_t
+after ``x_proj`` (``dt_norm``, ``b_norm``, ``c_norm``; eps ``norm_eps``), in
+training and decode alike.
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -37,6 +48,7 @@ from repro_torch.common.collectives import (as_axes, gather_over, grad_sum_over,
                                             split_over)
 from repro_torch.common.types import ModelConfig
 from repro_torch.kernels import ops as kops
+from repro_torch.models.layers import norms
 from repro_torch.launch.mesh import axes_size
 from repro_torch.sharding.local import is_dtensor
 
@@ -58,7 +70,7 @@ def init(gen, cfg: ModelConfig, dtype=torch.float32):
         return (torch.randn(shape, generator=gen, device=dev) * s).to(dtype)
 
     A = torch.arange(1, N + 1, dtype=torch.float32, device=dev).expand(di, N)
-    return {
+    p = {
         "in_proj": normal((d, 2 * di), d ** -0.5),
         "conv_w": normal((di, K), K ** -0.5),
         "conv_b": torch.zeros((di,), dtype=dtype, device=dev),
@@ -69,31 +81,81 @@ def init(gen, cfg: ModelConfig, dtype=torch.float32):
         "D": torch.ones((di,), dtype=dtype, device=dev),
         "out_proj": normal((di, d), di ** -0.5),
     }
+    if cfg.ssm_inner_norms:
+        p.update(dt_norm=norms.rms_init(R, dtype, dev), b_norm=norms.rms_init(N, dtype, dev),
+                 c_norm=norms.rms_init(N, dtype, dev))
+    return p
 
 
-def causal_conv(x, conv_w, conv_b):
-    """x: (B, S, di) depthwise causal conv along S."""
+def segment_starts(segment_ids):
+    """(B, S) bool: the steps t > 0 whose segment id differs from step
+    t - 1's (the steps at which a restarting layer drops its state)."""
+    starts = torch.zeros(segment_ids.shape, dtype=torch.bool, device=segment_ids.device)
+    starts[:, 1:] = segment_ids[:, 1:] != segment_ids[:, :-1]
+    return starts
+
+
+def conv_taps(starts, K: int):
+    """The live taps of a K-wide causal conv over rows that restart at
+    ``starts`` ((B, S) bool): K - 1 (B, S) bool masks, the k-th True where
+    the tap of x_{t-K+1+k} lies in step t's segment (no start in
+    (t - K + 1 + k, t])."""
+    S = starts.shape[1]
+    run = torch.cumsum(starts.int(), dim=1)
+    run_p = F.pad(run, (K - 1, 0))
+    return tuple(run_p[:, k:k + S] == run for k in range(K - 1))
+
+
+class Restarts(NamedTuple):
+    """A microbatch's segment restarts, made once for all its Mamba layers
+    (``make_restarts``): the start mask, the conv's live taps and, for the
+    kernels, their restart words."""
+    starts: torch.Tensor
+    taps: tuple
+    words: Optional[torch.Tensor]
+
+
+def make_restarts(segment_ids, K: int, kernel: bool = True) -> Restarts:
+    """The ``Restarts`` of (B, S) ``segment_ids`` for a K-wide conv; the
+    words only with ``kernel``."""
+    starts = segment_starts(segment_ids)
+    return Restarts(starts, conv_taps(starts, K), kops.start_words(starts) if kernel else None)
+
+
+def causal_conv(x, conv_w, conv_b, starts=None, taps=None):
+    """x: (B, S, di) depthwise causal conv along S; with ``starts`` ((B, S)
+    bool, ``segment_starts``), or their ``conv_taps``, a tap that reaches
+    into an earlier segment reads zero."""
     B, S, di = x.shape
     K = conv_w.shape[1]
     xp = F.pad(x, (0, 0, K - 1, 0))
+    if taps is None and starts is not None:
+        taps = conv_taps(starts, K)
     # stack K shifted views: y_t = sum_k w[:,k] * x_{t-K+1+k}
     y = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     for k in range(K):
-        y = y + xp[:, k:k + S].float() * conv_w[:, k].float()
+        tap = xp[:, k:k + S].float()
+        if taps is not None and k < K - 1:
+            tap = tap * taps[k][..., None]
+        y = y + tap * conv_w[:, k].float()
     return (y + conv_b.float()).to(x.dtype)
 
 
-def ssm_scan_xla(u, dt, B_t, C_t, A, D):
+def ssm_scan_xla(u, dt, B_t, C_t, A, D, starts=None):
     """Sequential selective scan (the naive path).
 
-    u, dt: (B, S, di); B_t, C_t: (B, S, N); A: (di, N); D: (di,)
+    u, dt: (B, S, di); B_t, C_t: (B, S, N); A: (di, N); D: (di,); ``starts``
+    (B, S) bool or None: the steps that start from a zero state.
     Returns y: (B, S, di) in u's dtype and the final state (B, di, N) f32."""
     b, S, di = u.shape
     N = A.shape[1]
     uf, dtf, bf, cf = (t.float() for t in (u, dt, B_t, C_t))
+    keep = None if starts is None else (~starts).float()
     h = torch.zeros((b, di, N), dtype=torch.float32, device=u.device)
     ys = []
     for t in range(S):
+        if keep is not None:
+            h = h * keep[:, t, None, None]
         decay = torch.exp(dtf[:, t, :, None] * A[None])
         h = h * decay + (dtf[:, t] * uf[:, t])[..., None] * bf[:, t, None, :]
         ys.append(torch.einsum("bcn,bn->bc", h, cf[:, t]))
@@ -101,7 +163,7 @@ def ssm_scan_xla(u, dt, B_t, C_t, A, D):
     return y.to(u.dtype), h
 
 
-def ssm_scan_chunked(u, dt, B_t, C_t, A, D, *, chunk: int = 32, h0=None):
+def ssm_scan_chunked(u, dt, B_t, C_t, A, D, *, chunk: int = 32, h0=None, starts=None):
     """Chunked selective scan: sequential only across chunks.
 
     With T_t = Σ_{s≤t} dt_s (per channel), the recurrence solves to
@@ -109,6 +171,9 @@ def ssm_scan_chunked(u, dt, B_t, C_t, A, D, *, chunk: int = 32, h0=None):
                           + Σ_{j≤t} e^{A_cn (T_tc − T_jc)} dt_jc u_jc B_jn ]
     Exponents are ≤ 0 (A < 0, T monotone), so the closed intra-chunk form is
     stable.  The chunk is the largest divisor of S not above ``chunk``.
+    With ``starts`` ((B, S) bool) a term reaches step t only from its own
+    segment: j's where no segment starts in (j, t], and h0 where none
+    starts in the chunk up to t.
 
     u, dt: (B, S, di); B_t, C_t: (B, S, N); A: (di, N); D: (di,).
     Returns (y (B,S,di) in u's dtype, final state (B,di,N) f32)."""
@@ -123,34 +188,41 @@ def ssm_scan_chunked(u, dt, B_t, C_t, A, D, *, chunk: int = 32, h0=None):
         return t.float().reshape(b, n, c, t.shape[-1]).transpose(0, 1)
 
     uc, dtc, Bc, Cc = map(chunks, (u, dt, B_t, C_t))     # (n,b,c,·)
+    # run index of each step within its chunk: 0 until the chunk's first start
+    runs = (torch.zeros((n, b, c), device=u.device) if starts is None
+            else torch.cumsum(chunks(starts[..., None])[..., 0], dim=2))
     A32 = A.float()
     D32 = D.float()
     h = h0 if h0 is not None else torch.zeros((b, di, N), dtype=torch.float32,
                                               device=u.device)
     tri = torch.ones((c, c), dtype=torch.bool, device=u.device).tril()  # j <= t
     ys = []
-    for u_, dt_, b_, c_ in zip(uc, dtc, Bc, Cc):           # (b,c,di) / (b,c,N)
+    for u_, dt_, b_, c_, q in zip(uc, dtc, Bc, Cc, runs):  # (b,c,di) / (b,c,N) / (b,c)
         T = torch.cumsum(dt_, dim=1)                       # (b,c,di)
+        first = (q == 0).float()                           # h0 reaches these steps
         # inter-chunk: y_inter_tc = sum_n C_tn e^{A_cn T_tc} h_cn
         decay_T = torch.exp(T[..., None] * A32[None, None])           # (b,c,di,N)
-        y = torch.einsum("btn,btcn,bcn->btc", c_, decay_T, h)
-        # intra-chunk: E_{tjcn} = e^{A_cn (T_t - T_j)}, j <= t
+        y = torch.einsum("btn,btcn,bcn->btc", c_, decay_T, h) * first[..., None]
+        # intra-chunk: E_{tjcn} = e^{A_cn (T_t - T_j)}, j <= t in t's segment
         dT = T[:, :, None, :] - T[:, None, :, :]                     # (b,t,j,di)
         E = torch.exp(dT[..., None] * A32[None, None, None])         # (b,t,j,di,N)
-        E = torch.where(tri[None, :, :, None, None], E, 0.0)
+        live = tri[None] & (q[:, :, None] == q[:, None, :])          # (b,t,j)
+        E = torch.where(live[..., None, None], E, 0.0)
         w = dt_ * u_                                                  # (b,j,di)
         y = y + torch.einsum("btn,btjcn,bjc,bjn->btc", c_, E, w, b_)
         ys.append(y + u_ * D32[None, None])
         # state hand-off
         Tc = T[:, -1]                                                 # (b,di)
         Ec = torch.exp((Tc[:, None, :] - T)[..., None] * A32[None, None])  # (b,c,di,N)
-        h = h * torch.exp(Tc[..., None] * A32[None]) + \
-            torch.einsum("bjcn,bjc,bjn->bcn", Ec, w, b_)
+        last = (q == q[:, -1:]).float()                               # (b,j)
+        h = h * (torch.exp(Tc[..., None] * A32[None]) * first[:, -1, None, None]) + \
+            torch.einsum("bjcn,bjc,bjn->bcn", Ec, w * last[..., None], b_)
     y = torch.stack(ys, 1).reshape(b, S, di)
     return y.to(u.dtype), h
 
 
-def ssm_scan_sharded(u, dt, B_t, C_t, A, D, shard_ctx, chunked: bool = False):
+def ssm_scan_sharded(u, dt, B_t, C_t, A, D, shard_ctx, chunked: bool = False,
+                     starts=None):
     """The selective scan with its channels split over the model axes of
     ``shard_ctx = (mesh, batch_axes, model_axes)``, on this rank.
 
@@ -165,16 +237,17 @@ def ssm_scan_sharded(u, dt, B_t, C_t, A, D, shard_ctx, chunked: bool = False):
     whole gradient on every rank (the slices' all-gathered), and y's
     cotangent, which every rank holds whole, is cut to this rank's channels.
     Where the model axes do not divide di, the reference's spec leaves the
-    channels replicated: every rank scans all of them."""
+    channels replicated: every rank scans all of them.  ``starts`` as the
+    unsharded scans take it (every rank's rows, all channels alike)."""
     mesh, _, m_axes = shard_ctx
     m_axes = as_axes(m_axes)
     inner = ssm_scan_chunked if chunked else ssm_scan_xla
     msize = axes_size(mesh, m_axes)
     if msize == 1 or u.shape[-1] % msize:
-        return inner(u, dt, B_t, C_t, A, D)
+        return inner(u, dt, B_t, C_t, A, D, starts=starts)
     cut = lambda t, dim: split_over(t, mesh, m_axes, dim)       # noqa: E731
     y, h = inner(cut(u, -1), cut(dt, -1), grad_sum_over(B_t, mesh, m_axes),
-                 grad_sum_over(C_t, mesh, m_axes), cut(A, 0), cut(D, 0))
+                 grad_sum_over(C_t, mesh, m_axes), cut(A, 0), cut(D, 0), starts=starts)
     return gather_over(y, mesh, m_axes, -1), h
 
 
@@ -204,6 +277,10 @@ def _bcdt(params, u, cfg: ModelConfig):
     di, R, N, K = dims(cfg)
     proj = u @ params["x_proj"].to(u.dtype)
     dt_low, B_t, C_t = proj[..., :R], proj[..., R:R + N], proj[..., R + N:]
+    if cfg.ssm_inner_norms:
+        dt_low = norms.rms_apply(params["dt_norm"], dt_low, cfg.norm_eps)
+        B_t = norms.rms_apply(params["b_norm"], B_t, cfg.norm_eps)
+        C_t = norms.rms_apply(params["c_norm"], C_t, cfg.norm_eps)
     dt = F.softplus(dt_low @ params["dt_proj"].to(u.dtype)
                     + params["dt_bias"].to(u.dtype))
     return dt, B_t, C_t
@@ -269,12 +346,15 @@ def _apply_dtensor(params, x, cfg: ModelConfig, impl: str, shard_ctx):
 
 
 def apply(params, x, cfg: ModelConfig, *, cache=None, impl: str = "kernel",
-          shard_ctx=None):
+          shard_ctx=None, segment_ids=None, restarts: Optional[Restarts] = None):
     """x: (B, S, d) -> (B, S, d), training / prefill without a cache; or
     x (B, 1, d) with the layer's cache -> ((B, 1, d), the cache), its conv
     window and state written in place.  The scan as the reference picks it:
     the kernels, else the sharded scan under ``shard_ctx``, else chunked,
-    else naive."""
+    else naive.  Where ``cfg.ssm_segment_reset`` asks the layer to restart
+    at each segment, it takes the rows' ``restarts`` (``make_restarts``,
+    made once for every layer of a forward), else makes them from
+    ``segment_ids`` ((B, S))."""
     A = -torch.exp(params["A_log"].float())
     D = params["D"]
     if cache is not None:
@@ -297,18 +377,27 @@ def apply(params, x, cfg: ModelConfig, *, cache=None, impl: str = "kernel",
     if impl not in IMPLS:
         raise ValueError(f"selective-scan impl {impl!r} not in {IMPLS}")
     if is_dtensor(x):
+        if cfg.ssm_segment_reset or cfg.ssm_inner_norms:
+            raise ValueError(f"{cfg.name}: segment restarts and inner norms do not run on "
+                             "DTensors")
         return _apply_dtensor(params, x, cfg, impl, shard_ctx)
+    rs = restarts if cfg.ssm_segment_reset else None
+    if cfg.ssm_segment_reset and rs is None and segment_ids is not None:
+        rs = make_restarts(segment_ids, cfg.ssm_d_conv, impl == "kernel")
+    starts = None if rs is None else rs.starts
     u, z = _project(params, x, cfg)
-    u = F.silu(causal_conv(u, params["conv_w"], params["conv_b"]))
+    u = F.silu(causal_conv(u, params["conv_w"], params["conv_b"],
+                           taps=None if rs is None else rs.taps))
     dt, B_t, C_t = _bcdt(params, u, cfg)
     if impl == "kernel":
-        y, _ = kops.mamba_scan(u, dt, B_t, C_t, A, D)
+        y, _ = kops.mamba_scan(u, dt, B_t, C_t, A, D, starts=starts,
+                               words=None if rs is None else rs.words)
     elif shard_ctx is not None:
         y, _ = ssm_scan_sharded(u, dt, B_t, C_t, A, D, shard_ctx,
-                                chunked=impl == "chunked")
+                                chunked=impl == "chunked", starts=starts)
     elif impl == "naive":
-        y, _ = ssm_scan_xla(u, dt, B_t, C_t, A, D)
+        y, _ = ssm_scan_xla(u, dt, B_t, C_t, A, D, starts=starts)
     else:
-        y, _ = ssm_scan_chunked(u, dt, B_t, C_t, A, D)
+        y, _ = ssm_scan_chunked(u, dt, B_t, C_t, A, D, starts=starts)
     y = y * F.silu(z)
     return y @ params["out_proj"].to(x.dtype)

@@ -31,6 +31,7 @@ from typing import Any, Callable, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.common import trace
 from repro_torch.common.pytree import trainable
 from repro_torch.common.types import (FFNKind, LayerKind, ModelConfig,
                                       resolve_device, torch_dtype)
@@ -87,10 +88,12 @@ def _layer_init(gen, cfg: ModelConfig, kind: LayerKind, ffn_kind: FFNKind,
 
 
 def _layer_apply(lp, x, cfg: ModelConfig, kind: LayerKind, ffn_kind: FFNKind,
-                 ctx: FwdCtx, positions, segment_ids, cache=None, index=None):
+                 ctx: FwdCtx, positions, segment_ids, cache=None, index=None,
+                 restarts=None):
     """Returns (x, moe_out): moe_out is None for a layer without MoE, else
     (lb, drop_rate, imbalance), the two stats detached.  With the layer's
-    ``cache`` (decode) the layer writes it in place.  ``index`` (the layer's
+    ``cache`` (decode) the layer writes it in place.  ``restarts``: the
+    rows' ``mamba.Restarts``, made once a forward.  ``index`` (the layer's
     place in the stack) applies ``ctx``'s hidden constraint at the start of
     each block of ``block_period`` layers and its block constraint to the
     layer's params, inside the layer's checkpoint as the reference applies
@@ -122,7 +125,11 @@ def _layer_apply(lp, x, cfg: ModelConfig, kind: LayerKind, ffn_kind: FFNKind,
         impl = "naive" if ctx.mode == "train" and ctx.ssm_impl == "chunked" \
             else ctx.ssm_impl
         if cache is None:
-            y = mamba.apply(lp["mamba"], h, cfg, impl=impl, shard_ctx=ctx.shard_ctx)
+            with trace.span("layer.mamba", cat="layer", device=True, layer=index,
+                            microbatch=trace.microbatch(),
+                            recompute=torch._C._current_autograd_node() is not None):
+                y = mamba.apply(lp["mamba"], h, cfg, impl=impl, shard_ctx=ctx.shard_ctx,
+                                segment_ids=segment_ids, restarts=restarts)
         else:
             y, _ = mamba.apply(lp["mamba"], h, cfg, cache=cache["mamba"], impl=impl)
     else:
@@ -238,17 +245,22 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
 
     remat = (ctx.mode == "train" and cfg.remat and ctx.remat
              and torch.is_grad_enabled())
+    restarts = None
+    if (cfg.ssm_segment_reset and caches is None and segment_ids is not None
+            and LayerKind.MAMBA in cfg.layer_kinds and not is_dtensor(x)):
+        restarts = mamba.make_restarts(segment_ids, cfg.ssm_d_conv,
+                                       kernel=ctx.ssm_impl == "kernel")
     lb = drop = imb = torch.zeros((), device=x.device)
     for i, (lp, kind, fk) in enumerate(zip(params["layers"], cfg.layer_kinds,
                                            cfg.ffn_kinds)):
         cache = caches[i] if caches is not None else None
         if remat:
             x, mo = checkpoint(_layer_apply, lp, x, cfg, kind, fk, ctx,
-                               positions, segment_ids, cache, i,
+                               positions, segment_ids, cache, i, restarts,
                                use_reentrant=False)
         else:
             x, mo = _layer_apply(lp, x, cfg, kind, fk, ctx, positions,
-                                 segment_ids, cache, i)
+                                 segment_ids, cache, i, restarts)
         if mo is not None:
             # mean drop across MoE layers; worst-layer imbalance (the
             # straggler expert matmul)

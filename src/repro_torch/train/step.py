@@ -18,7 +18,8 @@ import torch
 
 from repro_torch.common import trace
 from repro_torch.common.pytree import tree_leaves, tree_map
-from repro_torch.common.types import MLLMConfig, ModelConfig, resolve_device
+from repro_torch.common.types import (LayerKind, MLLMConfig, ModelConfig,
+                                      resolve_device)
 from repro_torch.models import mllm as mllm_lib
 from repro_torch.models import model as model_lib
 from repro_torch.models.model import FwdCtx
@@ -100,9 +101,13 @@ def make_train_step(desc: MLLMConfig | ModelConfig, opt_cfg: AdamWConfig,
     and ``vocab_ce`` as in ``make_loss_fn``."""
     loss_fn = make_loss_fn(desc, ctx, communicator, vocab_ce=vocab_ce,
                            enc_ctx=enc_ctx, with_aux=True)
+    restarts = (isinstance(desc, ModelConfig) and desc.ssm_segment_reset
+                and LayerKind.MAMBA in desc.layer_kinds)
 
     def train_step(params, opt_state, batch, lr):
         with trace.span("step.train", cat="step"):
+            if restarts and getattr(batch, "segment_starts", None) is not None:
+                trace.counter("mamba.segment_starts", batch.segment_starts, cat="step")
             return _step(params, opt_state, batch, lr)
 
     def _step(params, opt_state, batch, lr):
@@ -117,6 +122,7 @@ def make_train_step(desc: MLLMConfig | ModelConfig, opt_cfg: AdamWConfig,
         loss_sum = drop_sum = imb_max = torch.zeros((), device=leaves[0].device)
         for i in range(n_mb):
             mb = {k: v[i] for k, v in batch.items()}
+            trace.set_microbatch(i)
             with trace.span("step.forward", cat="step", device=True, microbatch=i):
                 loss, aux = loss_fn(params, mb)
             with trace.span("step.backward", cat="step", device=True, microbatch=i):
@@ -128,6 +134,7 @@ def make_train_step(desc: MLLMConfig | ModelConfig, opt_cfg: AdamWConfig,
                 loss_sum = loss_sum + loss.detach()
                 drop_sum = drop_sum + aux["moe_drop_rate"].detach()
                 imb_max = torch.maximum(imb_max, aux["moe_imbalance"].detach())
+        trace.set_microbatch(None)
         with trace.span("step.optimizer", cat="step", device=True):
             grads = tree_map(lambda p: acc.get(id(p), p.grad).div_(n_mb), params)
             new_params, new_opt = adamw_update(opt_cfg, params, grads, opt_state,
@@ -149,14 +156,26 @@ def _like(g, buf):
     return g.float()
 
 
-def as_tensors(batch: dict, device="cuda") -> dict:
+class DeviceBatch(dict):
+    """A batch on the device (``as_tensors``), with what tracing reads from
+    its host copy: ``segment_starts``, the steps of its rows at which a
+    segment starts (a step whose id differs from the one before), counted
+    while ``trace.active()``, else None."""
+
+    segment_starts = None
+
+
+def as_tensors(batch: dict, device="cuda") -> DeviceBatch:
     """Numpy batch (leading microbatch axis) -> tensors on ``device``; float
     leaves as fp32, integer leaves as int32."""
     dev = resolve_device(device)
-    out = {}
+    out = DeviceBatch()
     with trace.span("step.h2d", cat="step"):
         for k, v in batch.items():
             v = np.asarray(v)
             dtype = torch.float32 if v.dtype.kind == "f" else torch.int32
             out[k] = torch.as_tensor(v).to(device=dev, dtype=dtype)
+        if "segment_ids" in batch and trace.active():
+            seg = np.asarray(batch["segment_ids"])
+            out.segment_starts = int(np.count_nonzero(seg[..., 1:] != seg[..., :-1]))
     return out

@@ -48,7 +48,8 @@ PLANS = {
 
 def _ref_cfg(cfg):
     return jtypes.ModelConfig(**{f.name: getattr(cfg, f.name)
-                                 for f in dataclasses.fields(types.ModelConfig)})
+                                 for f in dataclasses.fields(types.ModelConfig)
+                                 if f.name not in types.PORT_ONLY_FIELDS})
 
 
 def _plan(sp, kw):

@@ -55,9 +55,11 @@ def _t(x):
 def _same_config(a, b):
     """A port ModelConfig against the reference's, field by field; the
     reference's one other field is ``scan_layers`` (the port has no
-    ``lax.scan``)."""
-    names = {f.name for f in dataclasses.fields(a)}
+    ``lax.scan``); the port's own fields are off in every registered
+    config."""
+    names = {f.name for f in dataclasses.fields(a)} - set(types.PORT_ONLY_FIELDS)
     assert {f.name for f in dataclasses.fields(b)} - names == {"scan_layers"}
+    assert not any(getattr(a, n) for n in types.PORT_ONLY_FIELDS), a.name
     for n in names:
         assert getattr(a, n) == getattr(b, n), (a.name, n)
     for prop in ("layer_kinds", "ffn_kinds"):

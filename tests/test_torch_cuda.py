@@ -314,6 +314,33 @@ def test_cuda_mamba_scan_matches_plain(dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_mamba_scan_with_restarts_matches_plain(dtype):
+    """K4 and K5 restarting the state at packed-segment starts (a group's
+    first step, inside a group, step 1, the last step, every step of a
+    row) against the plain versions with the same restart words."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for (B, S, di) in MAMBA_CASES:
+        ins = _mamba_inputs(gen, dt, B, S, di)
+        starts = torch.rand(B, S, generator=gen, device="cuda") < 0.1
+        starts[:, 0] = False
+        starts[0, [t for t in (1, 16, 17, 64, S - 1) if t < S]] = True
+        if B > 2:
+            starts[2, 1:] = True
+        words = mamba_scan.start_words(starts)
+        cy = torch.randn(B, S, di, generator=gen, device="cuda")
+        outs = []
+        for plain in (False, True):
+            ts = [t.clone().requires_grad_(True) for t in ins]
+            y = mamba_scan.mamba_scan_bsd(*ts, plain=plain, starts=words)
+            outs.append([y, *torch.autograd.grad((y.float() * cy).sum(), ts)])
+        _assert_close(outs, dt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_mamba_backward_is_deterministic(dtype):
     """K5 run twice on the same inputs gives bitwise equal du, ddt and
     partials: no atomics, the cross-warp sums in a fixed order."""

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.common.types import PORT_ONLY_FIELDS
 from repro_torch.convert import params_from_jax
 from repro_torch.core.profiling.analytic import V5E
 
@@ -78,7 +79,8 @@ def test_serve_decode_tokens_equal_reference(capsys):
 
     params, prompts, want = {}, {}, {}
     for cfg in serve_decode.CONFIGS:
-        jcfg = JModelConfig(**{f: getattr(cfg, f) for f in cfg.__dataclass_fields__})
+        jcfg = JModelConfig(**{f: getattr(cfg, f) for f in cfg.__dataclass_fields__
+                               if f not in PORT_ONLY_FIELDS})
         jp = jmodel.init(jax.random.PRNGKey(0), jcfg)
         prompt = jax.random.randint(jax.random.PRNGKey(1),
                                     (serve_decode.B, serve_decode.PROMPT_LEN), 2,

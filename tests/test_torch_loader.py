@@ -60,7 +60,8 @@ LLM = types.ModelConfig(name="llm-tiny", family="dense", n_layers=2, d_model=128
 
 def _ref_cfg(cfg):
     return jtypes.ModelConfig(**{f.name: getattr(cfg, f.name)
-                                 for f in dataclasses.fields(types.ModelConfig)})
+                                 for f in dataclasses.fields(types.ModelConfig)
+                                 if f.name not in types.PORT_ONLY_FIELDS})
 
 
 def _schedulers():

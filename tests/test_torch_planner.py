@@ -71,8 +71,9 @@ J_ENC, J_LLM, _ = _reference_tiny_configs()
 def _port_cfg(jcfg):
     """The port's ``ModelConfig`` with the reference's field values.  The
     port has every field but ``scan_layers`` (how JAX lowers the stack),
-    which no count reads."""
-    fields = {f.name for f in dataclasses.fields(types.ModelConfig)}
+    which no count reads; its own fields (``PORT_ONLY_FIELDS``) keep their
+    defaults."""
+    fields = {f.name for f in dataclasses.fields(types.ModelConfig)} - set(types.PORT_ONLY_FIELDS)
     assert {f.name for f in dataclasses.fields(jtypes.ModelConfig)} - fields == \
         {"scan_layers"}
     return types.ModelConfig(**{n: getattr(jcfg, n) for n in fields})
@@ -80,7 +81,8 @@ def _port_cfg(jcfg):
 
 def _ref_cfg(cfg):
     return jtypes.ModelConfig(**{f.name: getattr(cfg, f.name)
-                                 for f in dataclasses.fields(types.ModelConfig)})
+                                 for f in dataclasses.fields(types.ModelConfig)
+                                 if f.name not in types.PORT_ONLY_FIELDS})
 
 
 ENC, LLM = _port_cfg(J_ENC), _port_cfg(J_LLM)
@@ -99,7 +101,10 @@ def test_port_configs_equal_reference_field_by_field():
     for n in ("ENCODER", "LLM"):
         a, b = getattr(jinternvl, n), getattr(internvl2_2b, n)
         for f in dataclasses.fields(types.ModelConfig):
-            assert getattr(a, f.name) == getattr(b, f.name), (n, f.name)
+            if f.name in types.PORT_ONLY_FIELDS:
+                assert not getattr(b, f.name), (n, f.name)
+            else:
+                assert getattr(a, f.name) == getattr(b, f.name), (n, f.name)
 
 
 @pytest.mark.parametrize("mode", ["train", "prefill", "decode"])

@@ -52,7 +52,8 @@ LLM = types.ModelConfig(name="l", family="dense", n_layers=8, d_model=512,
 
 def _ref_cfg(cfg):
     return jtypes.ModelConfig(**{f.name: getattr(cfg, f.name)
-                                 for f in dataclasses.fields(types.ModelConfig)})
+                                 for f in dataclasses.fields(types.ModelConfig)
+                                 if f.name not in types.PORT_ONLY_FIELDS})
 
 
 def _clock():

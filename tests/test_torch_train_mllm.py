@@ -61,7 +61,8 @@ REF = _reference_example()
 def _ref_mcfg(mcfg):
     def cfg(c):
         return jtypes.ModelConfig(**{f.name: getattr(c, f.name)
-                                     for f in dataclasses.fields(types.ModelConfig)})
+                                     for f in dataclasses.fields(types.ModelConfig)
+                                     if f.name not in types.PORT_ONLY_FIELDS})
     return jtypes.MLLMConfig(
         name=mcfg.name, encoder=cfg(mcfg.encoder), llm=cfg(mcfg.llm),
         stub=jtypes.ModalityStub(**dataclasses.asdict(mcfg.stub)),
